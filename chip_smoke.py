@@ -1,0 +1,446 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (thor_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero):
+  1. device: the card's name and power limit;
+  2. build: every CUDA kernel from thor_tpu_torch/csrc (and the C parser),
+     with nvcc's register / shared-memory report;
+  3. kernels: each kernel against its plain PyTorch version on the card, at
+     the shapes of the 1080p LDB stream (its I frame for the intra scan,
+     its first P frame for block MC) and on seeded random tilings; exact
+     equality; times from CUDA events;
+  4. slice: decodes testdata/LDB_medium_complexity_1080.bit on the card
+     (sha256 must match its golden) and the CIF goldens, with every launch
+     counter set to 0 just before and read just after; 1080p fps;
+  5. a {"kernels": [...]} JSON line;
+  6. last line: {"ok": true, "device": {...}}.
+Imports nothing of JAX or thor_tpu. Without a CUDA device it exits 1 and
+prints no result.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent
+TESTDATA = HERE / "testdata"
+STREAM_1080 = TESTDATA / "LDB_medium_complexity_1080.bit"
+CIF_STREAMS = ("intra_only", "LDB_low_complexity", "LDB_medium_complexity",
+               "LDB_high_efficiency")
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+INT_OPS_PER_S = 67e12         # float32 outside the tensor cores: the
+#                               guide's table has no int32 rate
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, warmup=3, iters=20):
+    """Mean ms per call from CUDA events over `iters` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def covered_ref_bytes(recs, R, Hp, Wp, T, C):
+    """Distinct reference bytes the records' tap windows touch (a 2-D
+    difference array over [R, Hp+1, Wp+1], summed per list)."""
+    from thor_tpu_torch.ops import mc as M
+    diff = torch.zeros((R, Hp + 1, Wp + 1), dtype=torch.int32,
+                       device=recs.device)
+    r = recs.long()
+    hh, ww = r[:, M.R_H] + T - 1, r[:, M.R_W] + T - 1
+    one = torch.ones(len(r), dtype=torch.int32, device=recs.device)
+    for s_, iy, ix, use in ((M.R_S0, M.R_IY0, M.R_IX0, None),
+                            (M.R_S1, M.R_IY1, M.R_IX1, r[:, M.R_BI] != 0)):
+        sel = slice(None) if use is None else use
+        s, y, x = r[sel, s_], r[sel, iy], r[sel, ix]
+        h, w, o = hh[sel], ww[sel], one[sel]
+        for dy, dx, sign in ((0, 0, 1), (0, 1, -1), (1, 0, -1), (1, 1, 1)):
+            diff.index_put_((s, y + dy * h, x + dx * w), sign * o,
+                            accumulate=True)
+    cover = diff.cumsum(1).cumsum(2)
+    return int((cover > 0).sum()) * C
+
+
+def mc_bound(recs, R, Hp, Wp, T, C, H, W):
+    """Least time for one mc_frame call: bytes (reference windows,
+    records, LUT, int32 output) over HBM rate vs tap MACs over the
+    integer rate."""
+    from thor_tpu_torch.ops import mc as M
+    r = recs.long()
+    pix = (r[:, M.R_H] * r[:, M.R_W]).sum().item()
+    pix_bi = (r[:, M.R_H] * r[:, M.R_W] * (r[:, M.R_BI] != 0)).sum().item()
+    nbytes = (covered_ref_bytes(recs, R, Hp, Wp, T, C)
+              + recs.numel() * 4 + C * H * W * 4)
+    ops = 2 * T * T * C * (pix + pix_bi)
+    return nbytes, ops
+
+
+def intra_bound(recs, C):
+    """Bytes one intra_scan call must move: per TU its residual read and
+    its pixels written (int32), its 2s+1 context samples read, and its
+    record. The TUs also form a serial chain of len(recs) steps."""
+    s = recs[:, 2].long()
+    per_plane = (8 * s * s + 4 * (2 * s + 1)).sum().item()
+    return C * per_plane + recs.numel() * 4
+
+
+def bound_ms(nbytes, ops):
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / INT_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# ---------------------------------------------------------------------------
+# seeded random tilings
+# ---------------------------------------------------------------------------
+
+def random_tiling(rng, H, W, min_s, max_s, clip):
+    """Aligned power-of-2 quadtree tiling in decode order; with clip,
+    pieces crossing the frame edge are split or cut to it."""
+    out = []
+
+    def split(y, x, s):
+        cross = y + s > H or x + s > W
+        if s > min_s and (rng.random() < 0.5 or (clip and cross)):
+            h = s // 2
+            for dy in (0, h):
+                for dx in (0, h):
+                    if y + dy < H and x + dx < W:
+                        split(y + dy, x + dx, h)
+        else:
+            out.append((y, x, min(s, H - y), min(s, W - x)))
+
+    for y in range(0, H, max_s):
+        for x in range(0, W, max_s):
+            split(y, x, max_s)
+    return out
+
+
+def random_mc_case(seed, H, W, C, pad, fb, tap_lo, T, min_s, max_s, dev):
+    from thor_tpu_torch.ops import mc as M
+    rng = np.random.default_rng(seed)
+    R = 2
+    tiles = random_tiling(rng, H, W, min_s, max_s, clip=True)
+    n = len(tiles)
+    lim = (pad - 8) << fb
+    pus = {k: np.array([t[i] for t in tiles]) for i, k in
+           enumerate(("y0", "x0", "h", "w"))}
+    for k in ("slot0", "slot1"):
+        pus[k] = rng.integers(0, R, n)
+    for k in ("mvx0", "mvy0", "mvx1", "mvy1"):
+        pus[k] = rng.integers(-lim, lim + 1, n)
+    pus["bi"] = rng.integers(0, 2, n)
+    recs, clamped = M.build_mc_records(pus, H, W, pad, fb, tap_lo, T)
+    assert clamped == 0
+    refs = torch.from_numpy(rng.integers(
+        0, 256, (C, R, H + 2 * pad, W + 2 * pad), dtype=np.uint8)).to(dev)
+    return refs, torch.from_numpy(recs).to(dev)
+
+
+def random_intra_case(seed, C, H, W, max_s, dev):
+    from thor_tpu_torch.ops import intra as IT
+    rng = np.random.default_rng(seed)
+    tiles = random_tiling(rng, H, W, 4, max_s, clip=False)
+    n = len(tiles)
+    ty, tx, s = (np.array([t[i] for t in tiles]) for i in range(3))
+    tus = {"ty": ty, "tx": tx, "size": s,
+           "mode": rng.integers(0, 10, n),
+           "toplen": s + ((tx + s < W) & (rng.random(n) < 0.5)),
+           "leftlen": s + ((ty + s < H) & (rng.random(n) < 0.5)),
+           "cbx_nonzero": (tx > 0) & (rng.random(n) < 0.5)}
+    recs = torch.from_numpy(IT.build_intra_records(tus, H, W)).to(dev)
+    planes = torch.from_numpy(rng.integers(0, 256, (C, H, W)).astype(
+        np.int32)).to(dev)
+    resid = torch.from_numpy(rng.integers(-300, 300, (C, H, W)).astype(
+        np.int32)).to(dev)
+    return planes, resid, recs
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else f"nvidia-smi failed: {smi.stderr.strip()}"
+    log(line)
+    name = torch.cuda.get_device_name(0)
+    log(f"[device] torch.cuda.get_device_name(0) = {name}; "
+        f"count = {torch.cuda.device_count()}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    return line, name
+
+
+def phase_build():
+    from thor_tpu_torch import native
+    from thor_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    for name in _build.CUDA_SOURCES:
+        _build.cuda_library(name)
+    native.lib()
+    dt = time.perf_counter() - t0
+    log(f"[build] CUDA kernels {list(_build.CUDA_SOURCES)} and the C parser "
+        f"ready in {dt:.2f} s (built in parallel into {_build.BUILD_DIR})")
+    for name in _build.CUDA_SOURCES:
+        for ln in _build.BUILD_LOG.get(name, "").splitlines():
+            if any(w in ln for w in ("registers", "Compiling entry", "spill",
+                                     "error", "warning")):
+                log(f"[build] {name}: {ln.strip()}")
+
+
+def first_frames(dev):
+    """Inputs of the 1080p stream's I frame (0) and first P frame (1),
+    and the reference window after frame 0, all on `dev`."""
+    from thor_tpu_torch.bitstream.reader import BitReader, iter_frames
+    from thor_tpu_torch.codec.constants import MAX_REF_FRAMES
+    from thor_tpu_torch.dec.decoder import Decoder, RefFrame
+    from thor_tpu_torch.dec.inputs import build_frame_inputs
+    from thor_tpu_torch.dec.parse import SequenceHeader
+    from thor_tpu_torch.dec.reconstruct import (mc_luts, reconstruct_frame,
+                                                to_device)
+    from thor_tpu_torch.native import parse_frame, seqhdr_from_python
+
+    payloads = iter_frames(str(STREAM_1080))
+    p0, p1 = next(payloads), next(payloads)
+    br = BitReader(p0)
+    seq = SequenceHeader.read(br)
+    dec = Decoder(device=dev)
+    dec.start(seq)
+    cs = seqhdr_from_python(seq)
+    luts = mc_luts(seq.bipred, dev)
+    nums = [0] * MAX_REF_FRAMES
+    nf0 = parse_frame(p0, br.pos, cs, nums)
+    cfg0, inp0, _ = build_frame_inputs(nf0, seq, nums)
+    inp0 = to_device(inp0, dev)
+    _, padded = reconstruct_frame(cfg0, inp0, [], luts)
+    window = [RefFrame(*padded, nf0.hdr.display_frame_num)] + dec.refs[:-1]
+    nums = [nf0.hdr.display_frame_num] + nums[:-1]
+    nf1 = parse_frame(p1, 0, cs, nums)
+    cfg1, inp1, slots1 = build_frame_inputs(nf1, seq, nums)
+    assert cfg0.R == 0 and cfg1.R > 0 and inp1["mc_clamped"] == 0
+    return seq, luts, (cfg0, inp0), (cfg1, to_device(inp1, dev),
+                                     [window[s] for s in slots1])
+
+
+def phase_kernels(dev):
+    """Kernels against plain versions; returns per-kernel rows."""
+    from thor_tpu_torch.dec.reconstruct import residual_planes
+    from thor_tpu_torch.ops import intra as IT
+    from thor_tpu_torch.ops import mc as M
+
+    seq, luts, (cfg0, inp0), (cfg1, inp1, refs1) = first_frames(dev)
+    H, W = seq.height, seq.width
+    rows = {"mc_frame": [], "intra_scan": []}
+    max_err = {"mc_frame": 0, "intra_scan": 0}
+
+    def check(kname, label, kern, plain, bound, timed=True):
+        got = kern()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got.long() - want.long()).abs().max().item())
+        max_err[kname] = max(max_err[kname], err)
+        if err:
+            raise AssertionError(f"{kname}[{label}]: kernel differs from "
+                                 f"its plain version (max |err| {err})")
+        b_ms, b_by = bound_ms(*bound)
+        if not timed:
+            log(f"[kernel] {kname}[{label}] equal to plain "
+                f"({len(got.shape)}-d output {tuple(got.shape)})")
+            return
+        ms = time_ms(kern)
+        log(f"[kernel] {kname}[{label}] equal to plain; kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.2f} bound_ms={b_ms:.5f} ({b_by})")
+        rows[kname].append((ms, plain_ms, b_ms, b_by, bound))
+
+    # block MC at the first P frame (Y: one launch, U+V: one launch)
+    refY = torch.stack([r.y for r in refs1])[None]
+    refUV = torch.stack([torch.stack([r.u for r in refs1]),
+                         torch.stack([r.v for r in refs1])])
+    R = len(refs1)
+    for label, refs, recs, lut, h, w, T, C in (
+            ("Y", refY, inp1["mc_y"], luts[0], H, W, 6, 1),
+            ("UV", refUV, inp1["mc_c"], luts[1], H // 2, W // 2, 4, 2)):
+        check("mc_frame", f"1080p P frame {label}, {len(recs)} records",
+              lambda: M.mc_frame(refs, recs, lut, h, w),
+              lambda: M.mc_frame_plain(refs, recs, lut, h, w),
+              mc_bound(recs, R, refs.shape[2], refs.shape[3], T, C, h, w))
+    # seeded random PU tilings at 1080p, uni + bi
+    for label, args, lut in (
+            ("random Y", (1, H, W, 1, 96, 2, -2, 6, 4, 64), luts[0]),
+            ("random UV", (2, H // 2, W // 2, 2, 48, 3, -1, 4, 2, 32),
+             luts[1])):
+        refs, recs = random_mc_case(*args, dev)
+        h, w = args[1], args[2]
+        T, C = args[7], args[3]
+        check("mc_frame", label, lambda: M.mc_frame(refs, recs, lut, h, w),
+              lambda: M.mc_frame_plain(refs, recs, lut, h, w),
+              mc_bound(recs, 2, refs.shape[2], refs.shape[3], T, C, h, w),
+              timed=False)
+
+    # intra scan at the I frame (Y: one launch, U+V: one launch)
+    ry, rc = residual_planes(cfg0, inp0, dev)
+    y0 = torch.zeros((1, H, W), dtype=torch.int32, device=dev)
+    uv0 = torch.zeros((2, H // 2, W // 2), dtype=torch.int32, device=dev)
+    for label, planes, resid, recs, C in (
+            ("Y", y0, ry[None].contiguous(), inp0["it_y"], 1),
+            ("UV", uv0, rc, inp0["it_c"], 2)):
+        check("intra_scan", f"1080p I frame {label}, {len(recs)} TUs",
+              lambda: IT.intra_scan(planes, resid, recs),
+              lambda: IT.intra_scan_plain(planes, resid, recs),
+              (intra_bound(recs, C), 0))
+    for label, args in (("random Y", (3, 1, 512, 512, 64)),
+                        ("random UV", (4, 2, 256, 256, 32))):
+        planes, resid, recs = random_intra_case(*args, dev)
+        check("intra_scan", label,
+              lambda: IT.intra_scan(planes, resid, recs),
+              lambda: IT.intra_scan_plain(planes, resid, recs),
+              (intra_bound(recs, args[1]), 0), timed=False)
+    log(f"[kernel] intra scan serial chain at the 1080p I frame: "
+        f"{len(inp0['it_y'])} luma TUs, {len(inp0['it_c'])} chroma TUs")
+    return rows, max_err
+
+
+def decode(path, dev):
+    """(frames, sha256 of the output, output bytes or None for the 1080p
+    stream) of one decode; fails if an MC window left the padded plane."""
+    from thor_tpu_torch.dec.decoder import Decoder
+    dec = Decoder(device=dev)
+    h = hashlib.sha256()
+    keep = [] if path != STREAM_1080 else None
+    n = 0
+    for planes in dec.decode_stream(str(path)):
+        for p in planes:
+            h.update(p.tobytes())
+            if keep is not None:
+                keep.append(p.tobytes())
+        n += 1
+    if dec.mc_clamped:
+        raise AssertionError(f"{path.name}: {dec.mc_clamped} MC windows "
+                             "leave the padded reference plane")
+    return n, h.hexdigest(), keep and b"".join(keep)
+
+
+def phase_slice(dev, card):
+    from thor_tpu_torch.ops import intra as IT
+    from thor_tpu_torch.ops import mc as M
+
+    counters = (M.mc_frame, IT.intra_scan)
+    plains = (M.mc_frame_plain, IT.intra_scan_plain)
+    want = (TESTDATA / "LDB_medium_complexity_1080_dec.sha256") \
+        .read_text().split()[0]
+
+    for f in counters:
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+    n, sha, _ = decode(STREAM_1080, dev)
+    launches = {f.__name__: f.launches for f in counters}
+    plain_calls = {f.__name__: f.calls for f in plains}
+    per_frame = {k: v / n for k, v in launches.items()}
+    log(f"[slice] 1080p LDB: {n} frames sha256 {sha} "
+        f"{'matches' if sha == want else 'DIFFERS FROM'} golden; "
+        f"launches {launches} ({per_frame} per frame); "
+        f"plain calls {plain_calls}; no MC window left the padded plane")
+    if sha != want or n != 17:
+        raise AssertionError("1080p decode does not match its golden")
+    if not all(launches.values()) or any(plain_calls.values()):
+        raise AssertionError("the decode did not run through both kernels")
+
+    for name in CIF_STREAMS:
+        nf, _, got = decode(TESTDATA / f"{name}.bit", dev)
+        ok = got == (TESTDATA / f"{name}_dec.yuv").read_bytes()
+        log(f"[slice] {name}: {nf} frames "
+            f"{'match' if ok else 'DIFFER FROM'} {name}_dec.yuv")
+        if not ok:
+            raise AssertionError(f"{name} does not match its golden")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n2, sha2, _ = decode(STREAM_1080, dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if sha2 != want:
+        raise AssertionError("timed 1080p decode does not match its golden")
+    fps = n2 / dt
+    log(f"[slice] 1080p decode fps={fps:.3f} ({n2} frames in {dt:.3f} s, "
+        f"warm, host clock, ends in torch.cuda.synchronize()); "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()} B; "
+        f"card {card}")
+    return launches, n
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(HERE))
+    import thor_tpu_torch  # noqa: F401  (fails outside a repo checkout)
+
+    dev = torch.device("cuda")
+    smi_line, card = phase_device()
+    phase_build()
+    rows, max_err = phase_kernels(dev)
+    launches, nframes = phase_slice(dev, card)
+
+    meta = {
+        "mc_frame": ("thor_tpu_torch/csrc/mc.cu",
+                     "thor_tpu/ops/pallas_mc.py:88"),
+        "intra_scan": ("thor_tpu_torch/csrc/intra_scan.cu",
+                       "thor_tpu/ops/pallas_intra.py:283"),
+    }
+    kernels = []
+    for name, (src, repl) in meta.items():
+        r = rows[name]             # per plane group of one frame: Y, UV
+        nbytes = sum(x[4][0] for x in r)
+        ops = sum(x[4][1] for x in r)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": sum(x[0] for x in r), "plain_ms": sum(x[1] for x in r),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    log(f"[summary] ms / plain_ms / bound_ms are per frame (Y launch + U/V "
+        f"launch) at the 1080p shapes; launches over the {nframes}-frame "
+        f"main-path decode; {smi_line}")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

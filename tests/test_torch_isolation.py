@@ -1,0 +1,47 @@
+"""The port stands alone: importing every thor_tpu_torch module pulls in
+neither jax nor thor_tpu, and the entry points refuse to run on a missing
+card unless the caller asks for the CPU."""
+
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from thor_tpu_torch.dec.decoder import Decoder, decode_file
+from thor_tpu_torch.device import resolve_device
+
+from .conftest import REPO, TESTDATA
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import thor_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(thor_tpu_torch.__path__,
+                                               "thor_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "thor_tpu"
+             or m.startswith("thor_tpu."))
+print(len(names), "modules")
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_no_thor_tpu():
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[0]) >= 15
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_file(str(TESTDATA / "intra_only.bit"))
+    with pytest.raises(RuntimeError):
+        Decoder()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
