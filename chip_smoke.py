@@ -7,13 +7,18 @@ Phases (any failure exits nonzero):
   1. device: the card's name and power limit;
   2. build: every CUDA kernel from thor_tpu_torch/csrc (and the C parser),
      with nvcc's register / shared-memory report;
-  3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes of the 1080p LDB stream (its I frame for the intra scan,
-     its first P frame for block MC) and on seeded random tilings; exact
-     equality; times from CUDA events;
-  4. slice: decodes testdata/LDB_medium_complexity_1080.bit on the card
-     (sha256 must match its golden) and the CIF goldens, with every launch
-     counter set to 0 just before and read just after; 1080p fps;
+  3. kernels: each kernel against its plain PyTorch version on the card;
+     exact equality; times from CUDA events. Block MC and the intra scan at
+     the shapes of the 1080p LDB stream (first P frame, I frame) and on
+     seeded random tilings. The interpolation kernels (pyramid ME, luma and
+     chroma synthesis) at every level of the 1080p RA16 stream's first
+     interpolated frame and on seeded correlated frames at (ratio, pos)
+     (2,1), (4,3), (16,7);
+  4. slices, each with every launch counter set to 0 just before and read
+     just after: the 1080p LDB stream (sha256) and the LDB / intra CIF
+     goldens; then the 1080p RA16 stream (sha256), the RA / RA16 / HDB CIF
+     goldens and RA16_long (sha256), which must launch all five kernels and
+     call no plain version; fps of both 1080p decodes, three repeats;
   5. a {"kernels": [...]} JSON line;
   6. last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or thor_tpu. Without a CUDA device it exits 1 and
@@ -35,8 +40,12 @@ import torch
 HERE = Path(__file__).resolve().parent
 TESTDATA = HERE / "testdata"
 STREAM_1080 = TESTDATA / "LDB_medium_complexity_1080.bit"
+STREAM_RA_1080 = TESTDATA / "RA16_high_efficiency_1080.bit"
 CIF_STREAMS = ("intra_only", "LDB_low_complexity", "LDB_medium_complexity",
                "LDB_high_efficiency")
+CIF_INTERP_STREAMS = ("RA_low_complexity", "RA16_high_efficiency",
+                      "HDB16_medium_complexity")
+FPS_REPEATS = 3
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 INT_OPS_PER_S = 67e12         # float32 outside the tensor cores: the
@@ -52,15 +61,24 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, warmup=3, iters=20):
-    """Mean ms per call from CUDA events over `iters` calls."""
+    """Mean device ms per call of `fn`, from CUDA events. `iters` calls
+    are captured into one CUDA graph (their kernel launches and
+    allocations, not the wrapper's host work) and the graph is replayed
+    between two events, so that a kernel shorter than its wrapper's host
+    time is still timed on the card and not on the host."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
@@ -332,13 +350,166 @@ def phase_kernels(dev):
     return rows, max_err
 
 
+class _Frame:
+    """Codec-padded planes of one frame."""
+
+    def __init__(self, y, u, v):
+        self.y, self.u, self.v = y, u, v
+
+
+def correlated_frames(seed, w, h, shift, dev):
+    """Two seeded correlated codec-padded frames on `dev`: the second is
+    the first moved by `shift` pels, plus noise."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h + 64, w + 64), np.uint8)
+    y0 = base[32:32 + h, 32:32 + w]
+    y1 = base[32 + shift[0]:32 + shift[0] + h,
+              32 + shift[1]:32 + shift[1] + w]
+    y1 = np.clip(y1.astype(np.int32) + rng.integers(-4, 5, y1.shape),
+                 0, 255).astype(np.uint8)
+
+    def mk(y):
+        u = y[::2, ::2].copy()
+        return _Frame(*(torch.from_numpy(np.pad(p, n, mode="edge")).to(dev)
+                        for p, n in ((y, 96), (u, 48), (255 - u, 48))))
+    return mk(y0), mk(y1)
+
+
+def first_interp_pair(dev):
+    """(r1, r2, ratio, pos) of the 1080p RA16 stream's first interpolated
+    frame: decodes the stream on the card until that frame is reached."""
+    from thor_tpu_torch.dec.decoder import Decoder
+
+    class Probe(Decoder):
+        pair = None
+
+        def _make_interp_frame(self, fh):
+            if Probe.pair is None:
+                Probe.pair = self.interp_pair(fh)
+            super()._make_interp_frame(fh)
+
+    for _ in Probe(device=dev).decode_stream(str(STREAM_RA_1080)):
+        if Probe.pair is not None:
+            break
+    return Probe.pair
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_pyramid(label, r0, r1, ratio, pos, rows, max_err, timed):
+    """One whole synthesis on the card through the kernels; every kernel
+    call's inputs then go through its plain version and the outputs must
+    be equal. With `timed`, each kernel is also timed at these inputs and
+    its bound computed, and a row is kept."""
+    from thor_tpu_torch.ops import interp as TI
+    dev = r0.y.device
+    h, w = r0.y.shape[0] - 2 * TI.PAD_Y, r0.y.shape[1] - 2 * TI.PAD_Y
+    rev, wt0, wt1 = TI.interp_weights(ratio, pos)
+    if rev:
+        r0, r1 = r1, r0
+
+    def same(kname, what, got, want, plain_ms):
+        err = max(int((g.long() - v.long()).abs().max().item())
+                  for g, v in zip(got, want))
+        max_err[kname] = max(max_err[kname], err)
+        if err:
+            raise AssertionError(f"{kname}[{label} {what}]: kernel differs "
+                                 f"from its plain version (max |err| {err})")
+        if not timed:
+            log(f"[kernel] {kname}[{label} {what}] equal to plain "
+                f"(plain_ms={plain_ms:.1f})")
+
+    def plain_run(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def keep(kname, what, kern, plain_ms, bound, note="", iters=20):
+        b_ms, b_by = bound_ms(*bound)
+        ms = time_ms(kern, warmup=2, iters=iters)
+        log(f"[kernel] {kname}[{label} {what}] equal to plain; "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.2f} "
+            f"bound_ms={b_ms:.5f} ({b_by}){note}")
+        rows[kname].append((ms, plain_ms, b_ms, b_by, bound))
+
+    levels = TI.num_levels(w, h)
+    calls = []
+    m0, m1 = TI.estimate_motion(
+        TI.build_pyramid(r0.y, w, h, levels),
+        TI.build_pyramid(r1.y, w, h, levels), w, h, (wt0, wt1),
+        on_level=lambda *c: calls.append(c))
+    for lvl, a, kw, maps in calls:
+        want, plain_ms = plain_run(TI.me_level_plain, *a, **kw)
+        bw, bh = TI.me_grid(kw["w"], kw["h"])
+        what = (f"level {lvl} {kw['w']}x{kw['h']} "
+                f"{'guided' if kw['guided'] else 'unguided'}, "
+                f"{bw // 2}x{bh // 2} blocks")
+        same("me_level", what, maps, want, plain_ms)
+        if timed:
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            TI.me_level(*a, stats=stats, **kw)
+            e16, e8 = stats.tolist()
+            bound = (nbytes(a[0], a[1]) + (7 if kw["guided"] else 5)
+                     * bw * bh * 4, 3 * (256 * e16 + 64 * e8))
+            keep("me_level", what, lambda: TI.me_level(*a, **kw), plain_ms,
+                 bound, note=f"; serial chain {bw * bh // 4} blocks, "
+                 f"{e16} 16x16 and {e8} 8x8 SADs needed", iters=5)
+
+    ykw = dict(w=w, h=h, cs=TI.BLOCK_STEP // 2, clip_pad=TI.BLOCK_STEP // 4,
+               base=TI.PAD_Y)
+    y = TI.mot_comp(r0.y, r1.y, m0, m1, **ykw)
+    want, plain_ms = plain_run(TI.mot_comp_plain, r0.y, r1.y, m0, m1, **ykw)
+    same("mot_comp", f"{w}x{h}", (y,), (want,), plain_ms)
+    if timed:
+        keep("mot_comp", f"{w}x{h}",
+             lambda: TI.mot_comp(r0.y, r1.y, m0, m1, **ykw), plain_ms,
+             (nbytes(r0.y, r1.y, m0, m1, y), 3 * w * h))
+    c1 = m1 >> 1
+    c0 = TI._scale_val(c1, -wt1, wt0)
+    ckw = dict(w=w // 2, h=h // 2, cs=TI.BLOCK_STEP // 4,
+               clip_pad=TI.BLOCK_STEP // 8, base=TI.PAD_C)
+    ca = (r0.u, r1.u, r0.v, r1.v, c0, c1)
+    uv = TI.mot_comp_uv(*ca, **ckw)
+    want, plain_ms = plain_run(TI.mot_comp_uv_plain, *ca, **ckw)
+    same("mot_comp_uv", f"2 x {w // 2}x{h // 2}", uv, want, plain_ms)
+    if timed:
+        keep("mot_comp_uv", f"2 x {w // 2}x{h // 2}",
+             lambda: TI.mot_comp_uv(*ca, **ckw), plain_ms,
+             (nbytes(*ca, *uv), 3 * w * h // 2))
+
+
+def phase_interp_kernels(dev):
+    """The three interpolation kernels against their plain versions.
+    Every shape is compared, the finest 1080p level included (the plain
+    ME decides a whole wavefront of blocks at a time, so it is affordable
+    there); rows are timed at the 1080p stream's frame only."""
+    names = ("me_level", "mot_comp", "mot_comp_uv")
+    rows = {k: [] for k in names}
+    max_err = {k: 0 for k in names}
+    r1, r2, ratio, pos = first_interp_pair(dev)
+    check_pyramid(f"1080p RA16 first interpolated frame ({ratio},{pos})",
+                  r1, r2, ratio, pos, rows, max_err, timed=True)
+    for seed, (w, h), (ratio, pos) in ((5, (352, 288), (2, 1)),
+                                       (6, (352, 288), (4, 3)),
+                                       (7, (352, 288), (16, 7)),
+                                       (8, (1920, 1080), (4, 3))):
+        a, b = correlated_frames(seed, w, h, (2, 3), dev)
+        check_pyramid(f"seeded {w}x{h} ({ratio},{pos})", a, b, ratio, pos,
+                      rows, max_err, timed=False)
+    return rows, max_err
+
+
 def decode(path, dev):
-    """(frames, sha256 of the output, output bytes or None for the 1080p
+    """(frames, sha256 of the output, output bytes or None for a 1080p
     stream) of one decode; fails if an MC window left the padded plane."""
     from thor_tpu_torch.dec.decoder import Decoder
     dec = Decoder(device=dev)
     h = hashlib.sha256()
-    keep = [] if path != STREAM_1080 else None
+    keep = [] if path not in (STREAM_1080, STREAM_RA_1080) else None
     n = 0
     for planes in dec.decode_stream(str(path)):
         for p in planes:
@@ -352,53 +523,90 @@ def decode(path, dev):
     return n, h.hexdigest(), keep and b"".join(keep)
 
 
-def phase_slice(dev, card):
+def all_counters():
+    from thor_tpu_torch.ops import interp as TI
     from thor_tpu_torch.ops import intra as IT
     from thor_tpu_torch.ops import mc as M
+    return ((M.mc_frame, IT.intra_scan, TI.me_level, TI.mot_comp,
+             TI.mot_comp_uv),
+            (M.mc_frame_plain, IT.intra_scan_plain, TI.me_level_plain,
+             TI.mot_comp_plain, TI.mot_comp_uv_plain))
 
-    counters = (M.mc_frame, IT.intra_scan)
-    plains = (M.mc_frame_plain, IT.intra_scan_plain)
-    want = (TESTDATA / "LDB_medium_complexity_1080_dec.sha256") \
-        .read_text().split()[0]
 
+def counted_decode(path, dev, must_launch):
+    """Decode with every counter set to 0 just before and read just
+    after; every kernel in `must_launch` must have launched and no plain
+    version been called."""
+    counters, plains = all_counters()
     for f in counters:
         f.launches = 0
     for f in plains:
         f.calls = 0
-    n, sha, _ = decode(STREAM_1080, dev)
+    n, sha, _ = decode(path, dev)
     launches = {f.__name__: f.launches for f in counters}
     plain_calls = {f.__name__: f.calls for f in plains}
-    per_frame = {k: v / n for k, v in launches.items()}
-    log(f"[slice] 1080p LDB: {n} frames sha256 {sha} "
-        f"{'matches' if sha == want else 'DIFFERS FROM'} golden; "
-        f"launches {launches} ({per_frame} per frame); "
-        f"plain calls {plain_calls}; no MC window left the padded plane")
-    if sha != want or n != 17:
-        raise AssertionError("1080p decode does not match its golden")
-    if not all(launches.values()) or any(plain_calls.values()):
-        raise AssertionError("the decode did not run through both kernels")
+    per_frame = {k: round(v / n, 3) for k, v in launches.items()}
+    log(f"[slice] {path.name}: launches {launches} ({per_frame} per "
+        f"frame); plain calls {plain_calls}")
+    if not all(launches[k] for k in must_launch) or any(plain_calls.values()):
+        raise AssertionError(f"{path.name}: the decode did not run through "
+                             f"the kernels {must_launch} alone")
+    return n, sha, launches
 
-    for name in CIF_STREAMS:
-        nf, _, got = decode(TESTDATA / f"{name}.bit", dev)
-        ok = got == (TESTDATA / f"{name}_dec.yuv").read_bytes()
+
+def check_goldens(names, dev):
+    for name in names:
+        golden = TESTDATA / f"{name}_dec.yuv"
+        nf, sha, got = decode(TESTDATA / f"{name}.bit", dev)
+        if golden.exists():
+            ok, what = got == golden.read_bytes(), golden.name
+        else:
+            want = (TESTDATA / f"{name}_dec.sha256").read_text().split()[0]
+            ok, what = sha == want, f"{name}_dec.sha256"
         log(f"[slice] {name}: {nf} frames "
-            f"{'match' if ok else 'DIFFER FROM'} {name}_dec.yuv")
+            f"{'match' if ok else 'DIFFER FROM'} {what}")
         if not ok:
             raise AssertionError(f"{name} does not match its golden")
 
+
+def timed_decodes(path, want, dev, card):
+    """FPS_REPEATS warm decodes in a row, each on the host clock and
+    ending in torch.cuda.synchronize(), sha256 checked every time."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    n2, sha2, _ = decode(STREAM_1080, dev)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    if sha2 != want:
-        raise AssertionError("timed 1080p decode does not match its golden")
-    fps = n2 / dt
-    log(f"[slice] 1080p decode fps={fps:.3f} ({n2} frames in {dt:.3f} s, "
-        f"warm, host clock, ends in torch.cuda.synchronize()); "
+    fps = []
+    for _ in range(FPS_REPEATS):
+        t0 = time.perf_counter()
+        n, sha, _ = decode(path, dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if sha != want:
+            raise AssertionError(f"timed decode of {path.name} does not "
+                                 "match its golden")
+        fps.append(n / dt)
+    med = sorted(fps)[len(fps) // 2]
+    log(f"[slice] {path.name} decode fps={med:.3f} (median of "
+        f"{FPS_REPEATS} warm decodes of {n} frames: "
+        f"{', '.join(f'{x:.3f}' for x in fps)}; spread "
+        f"{(max(fps) - min(fps)) / med * 100:.1f} % of the median; host "
+        f"clock, each ends in torch.cuda.synchronize()); "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} B; "
         f"card {card}")
+
+
+def phase_slice(path, must_launch, goldens, dev, card):
+    """One main path: the 1080p stream (sha256, 17 frames) with the
+    counters read around it, the CIF-size goldens that take the same
+    path, then the timed decodes."""
+    want = path.with_name(path.stem + "_dec.sha256").read_text().split()[0]
+    n, sha, launches = counted_decode(path, dev, must_launch)
+    log(f"[slice] {path.name}: {n} frames sha256 {sha} "
+        f"{'matches' if sha == want else 'DIFFERS FROM'} golden; no MC "
+        f"window left the padded plane")
+    if sha != want or n != 17:
+        raise AssertionError(f"{path.name} does not match its golden")
+    check_goldens(goldens, dev)
+    timed_decodes(path, want, dev, card)
     return launches, n
 
 
@@ -413,28 +621,43 @@ def main():
     smi_line, card = phase_device()
     phase_build()
     rows, max_err = phase_kernels(dev)
-    launches, nframes = phase_slice(dev, card)
+    rows_i, max_err_i = phase_interp_kernels(dev)
+    rows.update(rows_i)
+    max_err.update(max_err_i)
+    ldb = ("mc_frame", "intra_scan")
+    launches, nframes = phase_slice(STREAM_1080, ldb, CIF_STREAMS, dev, card)
+    launches_ra, _ = phase_slice(
+        STREAM_RA_1080, ldb + ("me_level", "mot_comp", "mot_comp_uv"),
+        CIF_INTERP_STREAMS + ("RA16_long",), dev, card)
 
+    pi = "thor_tpu/ops/pallas_interp.py"
     meta = {
         "mc_frame": ("thor_tpu_torch/csrc/mc.cu",
                      "thor_tpu/ops/pallas_mc.py:88"),
         "intra_scan": ("thor_tpu_torch/csrc/intra_scan.cu",
                        "thor_tpu/ops/pallas_intra.py:283"),
+        "me_level": ("thor_tpu_torch/csrc/interp_me.cu", f"{pi}:110"),
+        "mot_comp": ("thor_tpu_torch/csrc/interp_mc.cu", f"{pi}:455"),
+        "mot_comp_uv": ("thor_tpu_torch/csrc/interp_mc.cu", f"{pi}:510"),
     }
     kernels = []
     for name, (src, repl) in meta.items():
-        r = rows[name]             # per plane group of one frame: Y, UV
-        nbytes = sum(x[4][0] for x in r)
-        ops = sum(x[4][1] for x in r)
-        b_ms, b_by = bound_ms(nbytes, ops)
+        r = rows[name]             # the launches one frame makes
+        b_ms, b_by = bound_ms(sum(x[4][0] for x in r),
+                              sum(x[4][1] for x in r))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": launches[name], "max_abs_err": max_err[name],
+            "launches": (launches if name in ldb else launches_ra)[name],
+            "launches_ra16_path": launches_ra[name],
+            "max_abs_err": max_err[name],
             "ms": sum(x[0] for x in r), "plain_ms": sum(x[1] for x in r),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    log(f"[summary] ms / plain_ms / bound_ms are per frame (Y launch + U/V "
-        f"launch) at the 1080p shapes; launches over the {nframes}-frame "
-        f"main-path decode; {smi_line}")
+    log(f"[summary] ms / plain_ms / bound_ms are per frame at the 1080p "
+        f"shapes: mc_frame and intra_scan one Y and one U/V launch, "
+        f"me_level its four pyramid levels, mot_comp and mot_comp_uv one "
+        f"launch; launches: mc_frame and intra_scan over the {nframes}-frame "
+        f"LDB decode, the others over the {nframes}-frame RA16 decode "
+        f"(launches_ra16_path: all five there); {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

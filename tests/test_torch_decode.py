@@ -25,6 +25,9 @@ from .conftest import REPO, TESTDATA
 
 STREAMS = ["intra_only", "LDB_low_complexity", "LDB_medium_complexity",
            "LDB_high_efficiency"]
+# streams coded with interp_ref (RA_low_complexity synthesizes 7 references)
+INTERP_STREAMS = ["RA_low_complexity", "RA16_high_efficiency",
+                  "HDB16_medium_complexity"]
 
 
 def _concat(frames):
@@ -66,9 +69,52 @@ def test_cpu_decode_1080p_sha():
     assert n == 17 and h.hexdigest() == want
 
 
-def test_interpolated_reference_raises():
-    with pytest.raises(NotImplementedError, match="interpolated"):
-        decode_file(str(TESTDATA / "RA_low_complexity.bit"), device="cpu")
+def _sha_decode(name):
+    from thor_tpu_torch.dec.decoder import Decoder
+    h = hashlib.sha256()
+    n = 0
+    for planes in Decoder(device="cpu").decode_stream(
+            str(TESTDATA / f"{name}.bit")):
+        for p in planes:
+            h.update(p.tobytes())
+        n += 1
+    want = (TESTDATA / f"{name}_dec.sha256").read_text().split()[0]
+    return n, h.hexdigest(), want
+
+
+@pytest.mark.parametrize("name", INTERP_STREAMS)
+def test_cpu_decode_interp_stream_matches_golden_and_thor_tpu(name):
+    path = str(TESTDATA / f"{name}.bit")
+    got = _concat(decode_file(path, device="cpu"))
+    golden = np.fromfile(TESTDATA / f"{name}_dec.yuv", np.uint8)
+    assert got.shape == golden.shape
+    assert np.array_equal(got, golden)
+    assert np.array_equal(got, _concat(tpu_decode_file(path,
+                                                       backend="numpy")))
+
+
+def test_cpu_decode_interp_stream_goes_through_interpolation():
+    """RA_low_complexity: 7 of its 10 frames predict from a synthesized
+    reference, four pyramid levels each."""
+    from thor_tpu_torch.ops import interp as TI
+    n0 = (TI.me_level_plain.calls, TI.mot_comp_plain.calls,
+          TI.mot_comp_uv_plain.calls)
+    decode_file(str(TESTDATA / "RA_low_complexity.bit"), device="cpu")
+    assert (TI.me_level_plain.calls - n0[0], TI.mot_comp_plain.calls - n0[1],
+            TI.mot_comp_uv_plain.calls - n0[2]) == (28, 7, 7)
+
+
+def test_cpu_decode_ra16_long_sha():
+    n, got, want = _sha_decode("RA16_long")
+    assert n == 33 and got == want
+
+
+@pytest.mark.slow
+def test_cpu_decode_ra16_1080p_sha():
+    """14 interpolated 1080p references through the plain ME on the CPU:
+    about 70 s on eight cores."""
+    n, got, want = _sha_decode("RA16_high_efficiency_1080")
+    assert n == 17 and got == want
 
 
 def test_cli_writes_golden(tmp_path):
@@ -85,7 +131,20 @@ def test_frame_inputs_match_thor_tpu():
     """Per frame of LDB_medium: the residual groups, intra TU records,
     deblock side info and CLPF masks equal thor_tpu's fused-path inputs
     (build_frame_inputs_meta), and the MC PUs its build_mc_pus_native."""
-    payloads = list(iter_frames(str(TESTDATA / "LDB_medium_complexity.bit")))
+    assert _check_frame_inputs("LDB_medium_complexity") == 0
+
+
+def test_frame_inputs_match_thor_tpu_interp_frames():
+    """The same on RA_low_complexity, whose B frames name slot -1 (the
+    interpolated reference): the slot stays -1 and its display number is
+    the frame's own."""
+    assert _check_frame_inputs("RA_low_complexity") == 7
+
+
+def _check_frame_inputs(stream):
+    """Returns the number of frames that use the interpolated reference."""
+    payloads = list(iter_frames(str(TESTDATA / f"{stream}.bit")))
+    n_interp = 0
     br = BitReader(payloads[0])
     seq = SequenceHeader.read(br)
     cs, cs_t = seqhdr_from_python(seq), tpu_seqhdr(seq)
@@ -132,7 +191,10 @@ def test_frame_inputs_match_thor_tpu():
             (int(want["beta"]), int(want["tc"]), int(want["tcC"]))
         if cfg.R:
             assert inp["mc_clamped"] == 0
-            fnum = np.array([nums[r] for r in slots], np.int64)
+            dfn = nf.hdr.display_frame_num
+            n_interp += -1 in slots
+            fnum = np.array([nums[r] if r >= 0 else dfn for r in slots],
+                            np.int64)
             pw = NI.build_mc_pus_native(nft, cfg.R, fnum,
                                         nf.hdr.display_frame_num, seq.width,
                                         seq.height)
@@ -141,3 +203,4 @@ def test_frame_inputs_match_thor_tpu():
             for k in pw:
                 assert np.array_equal(pg[k], pw[k]), k
         nums = [nf.hdr.display_frame_num] + nums[:-1]
+    return n_interp

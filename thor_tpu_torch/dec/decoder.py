@@ -10,7 +10,10 @@ Pipelined like thor_tpu dec/decoder.py:222-356:
     program, and materializes output _DEPTH frames behind the dispatch
     front (each frame's device->host copy is queued right after its
     program, into pinned memory, and waited for only when yielded).
-The reference window (33 frames, codec-padded) stays on the device.
+The reference window (33 frames, codec-padded) stays on the device, and so
+does the interpolated reference of RA / HDB streams: it is synthesized
+from two window frames (ops/interp.py) on the same stream, just before
+the frame program that predicts from it.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ..codec.constants import (
     MAX_REF_FRAMES, MAX_REORDER_BUFFER, PAD_C, PAD_Y)
 from ..device import resolve_device
 from ..native import parse_frame, seqhdr_from_python
+from ..ops.interp import interpolate_frames
 from .inputs import build_frame_inputs
 from .parse import SequenceHeader
 from .reconstruct import mc_luts, reconstruct_frame, to_device
@@ -80,13 +84,17 @@ class Decoder:
     the kernels' plain versions). `mc_clamped` counts the MC cell windows
     that left the padded reference plane and were clamped into it
     (ops/mc.py:build_mc_records); a valid stream has none. `interp_frame`
-    only carries a loaded snapshot's interpolated reference."""
+    is the newest interpolated reference (padded planes on the device,
+    numbered as the frame it was made for), or None. `pending` lists
+    window frames a loaded snapshot had decoded but not yet output; the
+    next decode_payloads call puts them out in their display order."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self.seq: Optional[SequenceHeader] = None
         self.refs = [None] * MAX_REF_FRAMES
         self.interp_frame = None
+        self.pending = []
         self.next_display = 0
         self.mc_clamped = 0
         self._luts = None
@@ -101,7 +109,30 @@ class Decoder:
                                        (H // 2, W // 2, PAD_C))), 0)
         self.refs = [z] * MAX_REF_FRAMES
         self.interp_frame = None
+        self.pending = []
         self.next_display = 0
+
+    def interp_pair(self, fh):
+        """(r1, r2, ratio, pos): the two window frames that frame `fh`'s
+        interpolated reference is made from and where it lies between
+        them (dec/decode_frame.c:91-109)."""
+        dfn = fh.display_frame_num
+        r1 = self.refs[fh.ref_array[1]]
+        r2 = self.refs[fh.ref_array[2]]
+        off1 = r2.frame_num - dfn
+        off2 = dfn - r1.frame_num
+        if off1 < 0 and off2 < 0:
+            off1, off2 = -off1, -off2
+        if off1 == off2:
+            off1 = off2 = 1
+        return r1, r2, off1 + off2, off2
+
+    def _make_interp_frame(self, fh):
+        """Synthesize the interpolated reference of frame `fh`. Queued on
+        the current stream; the host waits for nothing."""
+        out = interpolate_frames(*self.interp_pair(fh))
+        self.interp_frame = RefFrame(out[3], out[4], out[5],
+                                     fh.display_frame_num)
 
     def decode_stream(self, path: str):
         """Yield (y, u, v) uint8 numpy frames in display order."""
@@ -157,9 +188,14 @@ class Decoder:
             except BaseException as e:           # noqa: BLE001
                 put(e)                            # re-raised by the consumer
 
+        reorder: dict = {}
+        for r in self.pending:
+            reorder[r.frame_num % MAX_REORDER_BUFFER] = _Output(tuple(
+                p[n:-n, n:-n].contiguous()
+                for p, n in ((r.y, PAD_Y), (r.u, PAD_C), (r.v, PAD_C))))
+        self.pending = []
         t = threading.Thread(target=producer, daemon=True)
         t.start()
-        reorder: dict = {}
         last_output = self.next_display - 1
         ready: deque = deque()
         try:
@@ -171,8 +207,7 @@ class Decoder:
                     raise item
                 fh, fut = item
                 if needs_interp(fh):
-                    raise NotImplementedError(
-                        "interpolated reference: next slice")
+                    self._make_interp_frame(fh)
                 cfg, inp, slots = fut.result()
                 clamped = inp.get("mc_clamped", 0)
                 if clamped:
@@ -180,7 +215,8 @@ class Decoder:
                     warnings.warn(
                         f"frame {fh.display_frame_num}: {clamped} MC windows "
                         "leave the padded reference and were clamped")
-                refs = [self.refs[r] for r in slots]
+                refs = [self.refs[r] if r >= 0 else self.interp_frame
+                        for r in slots]
                 planes, padded = reconstruct_frame(cfg, inp, refs,
                                                    self._luts)
                 dfn = fh.display_frame_num

@@ -225,7 +225,8 @@ def build_frame_inputs(nf, seq, ref_frame_nums):
 
     inputs is a dict of numpy arrays (nested dicts for residual groups
     "gy{s}" / "gc{s}"); slots lists the ref_array entries whose planes
-    the frame program stacks, in slot order."""
+    the frame program stacks, in slot order (-1: the interpolated
+    reference, whose display number is the frame's own)."""
     W, H = seq.width, seq.height
     fh = nf.hdr
     dd = nf.dd
@@ -233,10 +234,9 @@ def build_frame_inputs(nf, seq, ref_frame_nums):
 
     R = fh.num_ref
     slots = [fh.ref_array[i] for i in range(R)]
-    if any(r < 0 for r in slots):
-        raise NotImplementedError("interpolated reference: next slice")
     if R > 0:
-        fnum = np.array([ref_frame_nums[r] for r in slots], np.int64)
+        fnum = np.array([ref_frame_nums[r] if r >= 0
+                         else fh.display_frame_num for r in slots], np.int64)
         pus = build_mc_pus(nf, R, fnum, fh.display_frame_num, W, H)
         inp["mc_y"], ny = build_mc_records(pus, H, W, PAD_Y, 2, -2, 6)
         pus_c = dict(pus)

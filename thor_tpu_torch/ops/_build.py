@@ -24,7 +24,7 @@ PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "_build"
 CSRC = PKG / "csrc"
 
-CUDA_SOURCES = ("mc", "intra_scan")
+CUDA_SOURCES = ("mc", "intra_scan", "interp_me", "interp_mc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GCC_FLAGS = ("-O2", "-shared", "-fPIC")

@@ -42,16 +42,26 @@ def load_decoder_state(dec, path: str):
     """Restore `dec` (a thor_tpu_torch Decoder) from a thor_tpu decoder
     snapshot. Decoding continues with `dec.decode_payloads` on the
     remaining frame payloads. The snapshot holds no output position, so
-    the next frame to output is taken as the one after the newest
-    reference, which is exact for streams coded in display order (LDB)."""
+    the next frame to output is taken as the first display number missing
+    from the saved window, counting up from its oldest frame; window frames
+    past it were decoded ahead of their turn (RA / HDB) and go to
+    `dec.pending`. Exact while the reorder depth stays below the window's
+    33 frames."""
     with np.load(path) as z:
         dec.start(SequenceHeader(*(int(x) for x in z["seq"])))
         refs = list(dec.refs)
+        loaded = []
         for i in range(len(refs)):
             if f"ref{i}_y" in z:
                 refs[i] = _ref(z, f"ref{i}", dec.seq, dec.device)
+                loaded.append(refs[i])
         dec.refs = refs
         if "interp_y" in z:
             dec.interp_frame = _ref(z, "interp", dec.seq, dec.device)
-    dec.next_display = dec.refs[0].frame_num + 1
+    have = {r.frame_num: r for r in reversed(loaded)}     # newest wins
+    n = min(have)
+    while n in have:
+        n += 1
+    dec.next_display = n
+    dec.pending = [r for num, r in have.items() if num > n]
     return dec

@@ -1,9 +1,10 @@
 """Where a decode's time goes on the card.
 
-    python -m thor_tpu_torch.utils.profile_decode \
-        [testdata/LDB_medium_complexity_1080.bit] [--json out.json]
+    python -m thor_tpu_torch.utils.profile_decode [stream.bit] [--json out]
 
-Decodes the stream once to warm up, then:
+The stream defaults to testdata/LDB_medium_complexity_1080.bit; give
+testdata/RA16_high_efficiency_1080.bit for the path that synthesizes
+interpolated references. Decodes the stream once to warm up, then:
   - times the host stages alone, frame by frame (C entropy parse, numpy
     input build), on the host clock;
   - decodes it again under torch.profiler (CPU + CUDA activities) and
@@ -55,10 +56,14 @@ def host_stages(path):
 
 
 def _group(name: str) -> str:
+    if "mot_comp_kernel" in name:
+        return "mot_comp + mot_comp_uv (csrc/interp_mc.cu)"
+    if "me_walk_kernel" in name or "me_merge_kernel" in name:
+        return "me_level (csrc/interp_me.cu)"
     if "mc_kernel" in name:
-        return "mc_frame (CUDA kernel 1)"
+        return "mc_frame (csrc/mc.cu)"
     if "intra_scan_kernel" in name:
-        return "intra_scan (CUDA kernel 2)"
+        return "intra_scan (csrc/intra_scan.cu)"
     if "Memcpy" in name or "memcpy" in name:
         return "memcpy " + ("HtoD" if "HtoD" in name else
                             "DtoH" if "DtoH" in name else "other")
