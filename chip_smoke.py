@@ -13,13 +13,21 @@ Phases (any failure exits nonzero):
      seeded random tilings. The interpolation kernels (pyramid ME, luma and
      chroma synthesis) at every level of the 1080p RA16 stream's first
      interpolated frame and on seeded correlated frames at (ratio, pos)
-     (2,1), (4,3), (16,7);
+     (2,1), (4,3), (16,7). The encoder's intra scan on seeded tilings
+     (luma and U+V, fast and exact transforms, intra and inter quantizer
+     offsets) and at the TU records of the 1080p encode's first frame;
   4. slices, each with every launch counter set to 0 just before and read
      just after: the 1080p LDB stream (sha256) and the LDB / intra CIF
      goldens; then the 1080p RA16 stream (sha256), the RA / RA16 / HDB CIF
-     goldens and RA16_long (sha256), which must launch all five kernels and
-     call no plain version; fps of both 1080p decodes, three repeats;
-  5. a {"kernels": [...]} JSON line;
+     goldens and RA16_long (sha256), which must launch all five decoder
+     kernels and call no plain version; fps of both 1080p decodes, three
+     repeats. Then the device encoder: an all-intra encode of three
+     1920x1080 frames (the top-left crop of testdata/test_4k.yuv), which
+     the port's decoder must read back to the encoder's reconstruction; a
+     CIF encode with the fast transforms through the command line; and
+     the three committed thor_tpu streams (testdata/torch_enc_*.bit),
+     which the card must reproduce byte for byte;
+  5. a {"kernels": [...]} JSON line (six kernels);
   6. last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or thor_tpu. Without a CUDA device it exits 1 and
 prints no result.
@@ -31,6 +39,7 @@ import hashlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -524,27 +533,37 @@ def decode(path, dev):
 
 
 def all_counters():
+    from thor_tpu_torch.ops import enc_intra as EI
     from thor_tpu_torch.ops import interp as TI
     from thor_tpu_torch.ops import intra as IT
     from thor_tpu_torch.ops import mc as M
     return ((M.mc_frame, IT.intra_scan, TI.me_level, TI.mot_comp,
-             TI.mot_comp_uv),
+             TI.mot_comp_uv, EI.encode_scan),
             (M.mc_frame_plain, IT.intra_scan_plain, TI.me_level_plain,
-             TI.mot_comp_plain, TI.mot_comp_uv_plain))
+             TI.mot_comp_plain, TI.mot_comp_uv_plain, EI.encode_scan_plain))
+
+
+def zero_counters():
+    counters, plains = all_counters()
+    for f in counters:
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+
+
+def read_counters():
+    counters, plains = all_counters()
+    return ({f.__name__: f.launches for f in counters},
+            {f.__name__: f.calls for f in plains})
 
 
 def counted_decode(path, dev, must_launch):
     """Decode with every counter set to 0 just before and read just
     after; every kernel in `must_launch` must have launched and no plain
     version been called."""
-    counters, plains = all_counters()
-    for f in counters:
-        f.launches = 0
-    for f in plains:
-        f.calls = 0
+    zero_counters()
     n, sha, _ = decode(path, dev)
-    launches = {f.__name__: f.launches for f in counters}
-    plain_calls = {f.__name__: f.calls for f in plains}
+    launches, plain_calls = read_counters()
     per_frame = {k: round(v / n, 3) for k, v in launches.items()}
     log(f"[slice] {path.name}: launches {launches} ({per_frame} per "
         f"frame); plain calls {plain_calls}")
@@ -610,6 +629,239 @@ def phase_slice(path, must_launch, goldens, dev, card):
     return launches, n
 
 
+
+# ---------------------------------------------------------------------------
+# the device encoder: kernel 6 and the all-intra slice
+# ---------------------------------------------------------------------------
+
+ENC_1080 = dict(width=1920, height=1080, qp=32, intra_period=1, num_frames=3,
+                device_encode=1, intra_rdo=1, deblocking=1, clpf=1,
+                use_block_contexts=1)
+ENC_CIF_FAST = ["-width", "352", "-height", "288", "-n", "2", "-qp", "32",
+                "-intra_period", "1", "-device_encode", "1", "-intra_rdo",
+                "0", "-encoder_speed", "2", "-max_delta_qp", "1"]
+
+
+def enc_params(fields):
+    """EncoderParams built in code, float fields through float32 as the
+    reference stores them."""
+    from thor_tpu_torch.enc.encoder import FLOAT_PARAMS, EncoderParams
+    p = EncoderParams(**fields)
+    for f in FLOAT_PARAMS:
+        setattr(p, f, float(np.float32(getattr(p, f))))
+    return p
+
+
+def frames_1080():
+    """Frames 0-2 of testdata/test_4k.yuv, top-left 1920x1080."""
+    from tools.gen_torch_enc_goldens import crop_frames
+    return crop_frames(TESTDATA / "test_4k.yuv", 3840, 2160, 1920, 1080, 3)
+
+
+def random_enc_case(seed, C, H, W, min_s, max_s, dev):
+    """Seeded mixed tiling with random modes and availability, random
+    0..255 start planes and originals (which reach both the int16 wrap of
+    the forward stages and the saturation of the inverse ones)."""
+    from thor_tpu_torch.ops import intra as IT
+    rng = np.random.default_rng(seed)
+    tiles = random_tiling(rng, H, W, min_s, max_s, clip=False)
+    n = len(tiles)
+    ty, tx, s = (np.array([t[i] for t in tiles]) for i in range(3))
+    tus = {"ty": ty, "tx": tx, "size": s,
+           "mode": rng.integers(0, 10, n),
+           "toplen": s + ((tx + s < W) & (rng.random(n) < 0.5)),
+           "leftlen": s + ((ty + s < H) & (rng.random(n) < 0.5)),
+           "cbx_nonzero": (tx > 0) & (rng.random(n) < 0.5)}
+    recs = torch.from_numpy(IT.build_intra_records(tus, H, W)).to(dev)
+    planes, org = (torch.from_numpy(rng.integers(0, 256, (C, H, W)).astype(
+        np.int32)).to(dev) for _ in range(2))
+    return planes, org, recs
+
+
+def enc_scan_bound(recs, q16, C, H, W, fast):
+    """(bytes, integer operations) one encode_scan call must do: the
+    original read once and the plane written once (int32), the banks and
+    the records; the four matrix stages of every TU and plane, the
+    inverse ones only where this run's levels are not all zero."""
+    s = recs[:, 2].long()
+    qs = torch.clamp(s, max=16)
+    n = torch.where(s > 16, torch.full_like(s, 16), s) if fast \
+        else torch.clamp(s, max=32)
+    m = torch.clamp(s, max=32)
+    fwd = 2 * (qs * n * n + qs * qs * n)
+    inv = 2 * (m * qs * qs + m * m * qs)
+    coded = (q16 != 0).any(dim=3).any(dim=2).long()            # [N, C]
+    ops = (fwd * C + inv * coded.sum(dim=1)).sum().item()
+    return (2 * C * H * W * 4 + q16.numel() * 2 + recs.numel() * 4, ops)
+
+
+def phase_enc_kernel(dev):
+    """Kernel 6 against its plain version: planes and coefficient banks
+    equal. Returns (rows, max_err) like phase_kernels."""
+    from thor_tpu_torch.codec.constants import CHROMA_QP
+    from thor_tpu_torch.enc import device_intra as DI
+    from thor_tpu_torch.ops import enc_intra as EI
+    rows, max_err = {"encode_scan": []}, {"encode_scan": 0}
+
+    def check(label, planes, org, recs, qp, fast, intra, timed):
+        gp, gq = EI.encode_scan(planes, org, recs, qp, fast, intra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wp, wq = EI.encode_scan_plain(planes, org, recs, qp, fast, intra)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(int((gp - wp).abs().max().item()),
+                  int((gq.int() - wq.int()).abs().max().item()))
+        max_err["encode_scan"] = max(max_err["encode_scan"], err)
+        if err:
+            raise AssertionError(f"encode_scan[{label}]: kernel differs from "
+                                 f"its plain version (max |err| {err})")
+        coded = int((wq != 0).any(dim=3).any(dim=2).sum().item())
+        what = (f"encode_scan[{label}, qp {qp}, "
+                f"{'fast' if fast else 'exact'} transforms, "
+                f"{'intra' if intra else 'inter'} offsets, {len(recs)} TUs, "
+                f"{coded} of {wq.shape[0] * wq.shape[1]} banks coded]")
+        if not timed:
+            log(f"[kernel] {what} equal to plain (plain_ms={plain_ms:.1f})")
+            return
+        C, H, W = planes.shape
+        bound = enc_scan_bound(recs, gq, C, H, W, fast)
+        b_ms, b_by = bound_ms(*bound)
+        ms = time_ms(lambda: EI.encode_scan(planes, org, recs, qp, fast,
+                                            intra), warmup=2, iters=5)
+        log(f"[kernel] {what} equal to plain; kernel_ms={ms:.4f} "
+            f"({ms * 1e3 / len(recs):.3f} us per TU) plain_ms={plain_ms:.2f} "
+            f"bound_ms={b_ms:.5f} ({b_by})")
+        rows["encode_scan"].append((ms, plain_ms, b_ms, b_by, bound))
+
+    seed = 20
+    for C, H, W, min_s, max_s in ((1, 256, 192, 8, 64), (2, 128, 96, 4, 32)):
+        for fast in (False, True):
+            for intra in (True, False):
+                seed += 1
+                planes, org, recs = random_enc_case(seed, C, H, W, min_s,
+                                                    max_s, dev)
+                check(f"random {'Y' if C == 1 else 'UV'} {W}x{H}", planes,
+                      org, recs, 22 + seed % 17, fast, intra, timed=False)
+
+    # the 1080p encode's first frame: its search, its records
+    p = enc_params(ENC_1080)
+    y, u, v = (torch.from_numpy(a).to(dev).to(torch.int32)
+               for a in frames_1080()[0])
+    from thor_tpu_torch.enc.encoder import SQUARED_LAMBDA_QP
+    qpY, qpC = p.qp, int(CHROMA_QP[p.qp])
+    modes, split = DI.search_intra_frame(
+        y, u, v, qpY, qpC, p.lambda_coeffI * SQUARED_LAMBDA_QP[qpY],
+        p.width, p.height, p.encoder_speed > 1, 10)
+    recs_y, recs_c = DI.scan_records(
+        DI._walk_tree(split, modes, p.width, p.height), p.width, p.height)
+    sizes = np.bincount(recs_y[:, 2], minlength=65)
+    by_size = ", ".join(f"{sizes[s]} of {s}x{s}" for s in (8, 16, 32, 64))
+    log(f"[kernel] 1080p I frame: {len(recs_y)} TUs, the serial chain of "
+        f"each plane class: {by_size}")
+    check("1080p I frame Y", torch.zeros_like(y)[None], y[None],
+          torch.from_numpy(recs_y).to(dev), qpY, False, True, timed=True)
+    check("1080p I frame UV", torch.zeros_like(torch.stack([u, v])),
+          torch.stack([u, v]), torch.from_numpy(recs_c).to(dev), qpC, False,
+          True, timed=True)
+    return rows, max_err
+
+
+def decode_equals(path, recons, dev, what):
+    """The port's decoder reads `path` back to the frames `recons`."""
+    from thor_tpu_torch.dec.decoder import Decoder
+    dec = list(Decoder(device=dev).decode_stream(str(path)))
+    ok = len(dec) == len(recons) and all(
+        np.array_equal(a, b) for d, r in zip(dec, recons)
+        for a, b in zip(d, r))
+    log(f"[slice] {what}: the decoder's {len(dec)} frames "
+        f"{'equal' if ok else 'DIFFER FROM'} the encoder's reconstruction")
+    if not ok:
+        raise AssertionError(f"{what}: decode differs from the encoder's "
+                             "reconstruction")
+
+
+def phase_encode(dev, card, out_dir):
+    """The device encoder's I-frame path. Returns the launches of the
+    1080p encode."""
+    from thor_tpu_torch.enc.__main__ import main as enc_main
+    from thor_tpu_torch.enc.encoder import Encoder
+    from thor_tpu_torch.utils.snr import snr_plane
+    from tools.gen_torch_enc_goldens import CASES, golden_path, load_frames
+
+    # 1. full width: 3 frames of 1920x1080, all intra, 10 modes
+    frames = frames_1080()
+    out = out_dir / "enc_1080.bit"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    enc = Encoder(enc_params(ENC_1080))
+    t0 = time.perf_counter()
+    recons = enc.encode_sequence(frames, str(out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    stages = ("search", "scan", "emit", "filters")
+    per_frame = []
+    for i, ft in enumerate(enc.frame_times):
+        per_frame.append(sum(ft[k] for k in stages))
+        log(f"[slice] 1080p all-intra encode, frame {i}: {ft['tus']} TUs; "
+            + ", ".join(f"{k} {ft[k] * 1e3:.1f} ms" for k in stages)
+            + " (host clock, each stage ends in a wait for the device)")
+    fps = [1.0 / t for t in per_frame]
+    med = sorted(fps)[len(fps) // 2]
+    psnr = [snr_plane(f[0], r[0]) for f, r in zip(frames, recons)]
+    log(f"[slice] 1080p all-intra encode fps={med:.4f} (median of the "
+        f"{len(fps)} frames: {', '.join(f'{x:.4f}' for x in fps)}; spread "
+        f"{(max(fps) - min(fps)) / med * 100:.1f} % of the median; the whole "
+        f"call, reading back each frame included: {wall:.2f} s); "
+        f"{out.stat().st_size} bytes written; PSNR-Y "
+        f"{', '.join(f'{x:.3f}' for x in psnr)} dB; "
+        f"max_memory_allocated={peak} B; launches {launches}; plain calls "
+        f"{plain_calls}; card {card}")
+    if launches["encode_scan"] != 2 * len(recons) or len(recons) != 3 \
+            or any(plain_calls.values()):
+        raise AssertionError("the 1080p encode did not run through "
+                             "encode_scan alone, twice per frame")
+    zero_counters()
+    decode_equals(out, recons, dev, "1080p all-intra stream")
+    launches_dec, plain_dec = read_counters()
+    if not launches_dec["intra_scan"] or any(plain_dec.values()):
+        raise AssertionError("the decode of the encoder's stream did not "
+                             "run through the intra scan kernel")
+
+    # 2. CIF through the command line: 4 modes, fast transforms, delta-QP
+    cif, rec = out_dir / "enc_cif_fast.bit", out_dir / "enc_cif_fast_rec.yuv"
+    zero_counters()
+    rc = enc_main(["-if", str(TESTDATA / "test_cif.yuv"), "-of", str(cif),
+                   "-rf", str(rec)] + ENC_CIF_FAST)
+    l_cif, p_cif = read_counters()
+    if rc != 0 or l_cif["encode_scan"] != 4 or any(p_cif.values()):
+        raise AssertionError("the CIF command-line encode failed or did not "
+                             "run through encode_scan")
+    raw = np.frombuffer(rec.read_bytes(), np.uint8).reshape(2, -1)
+    cut = (352 * 288, 352 * 288 + 176 * 144)
+    decode_equals(cif, [(f[:cut[0]].reshape(288, 352),
+                         f[cut[0]:cut[1]].reshape(144, 176),
+                         f[cut[1]:].reshape(144, 176)) for f in raw], dev,
+                  f"CIF fast-path stream ({cif.stat().st_size} bytes)")
+
+    # 3. thor_tpu's streams for the same parameters and input, byte for byte
+    for name in CASES:
+        fields, fr = load_frames(name)
+        got = out_dir / f"enc_{name}.bit"
+        Encoder(enc_params(fields)).encode_sequence(fr, str(got))
+        same = got.read_bytes() == golden_path(name).read_bytes()
+        log(f"[slice] {name}: {got.stat().st_size} bytes "
+            f"{'equal' if same else 'DIFFER FROM'} thor_tpu's "
+            f"{golden_path(name).name}")
+        if not same:
+            raise AssertionError(f"{name}: the port's stream differs from "
+                                 "thor_tpu's")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -622,13 +874,17 @@ def main():
     phase_build()
     rows, max_err = phase_kernels(dev)
     rows_i, max_err_i = phase_interp_kernels(dev)
-    rows.update(rows_i)
-    max_err.update(max_err_i)
+    rows_e, max_err_e = phase_enc_kernel(dev)
+    for r, e in ((rows_i, max_err_i), (rows_e, max_err_e)):
+        rows.update(r)
+        max_err.update(e)
     ldb = ("mc_frame", "intra_scan")
     launches, nframes = phase_slice(STREAM_1080, ldb, CIF_STREAMS, dev, card)
     launches_ra, _ = phase_slice(
         STREAM_RA_1080, ldb + ("me_level", "mot_comp", "mot_comp_uv"),
         CIF_INTERP_STREAMS + ("RA16_long",), dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_enc = phase_encode(dev, card, Path(tmp))
 
     pi = "thor_tpu/ops/pallas_interp.py"
     meta = {
@@ -639,6 +895,8 @@ def main():
         "me_level": ("thor_tpu_torch/csrc/interp_me.cu", f"{pi}:110"),
         "mot_comp": ("thor_tpu_torch/csrc/interp_mc.cu", f"{pi}:455"),
         "mot_comp_uv": ("thor_tpu_torch/csrc/interp_mc.cu", f"{pi}:510"),
+        "encode_scan": ("thor_tpu_torch/csrc/enc_intra_scan.cu",
+                        "thor_tpu/ops/pallas_enc_intra.py:278"),
     }
     kernels = []
     for name, (src, repl) in meta.items():
@@ -647,7 +905,8 @@ def main():
                               sum(x[4][1] for x in r))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": (launches if name in ldb else launches_ra)[name],
+            "launches": (launches if name in ldb else launches_enc
+                         if name == "encode_scan" else launches_ra)[name],
             "launches_ra16_path": launches_ra[name],
             "max_abs_err": max_err[name],
             "ms": sum(x[0] for x in r), "plain_ms": sum(x[1] for x in r),
@@ -655,9 +914,11 @@ def main():
     log(f"[summary] ms / plain_ms / bound_ms are per frame at the 1080p "
         f"shapes: mc_frame and intra_scan one Y and one U/V launch, "
         f"me_level its four pyramid levels, mot_comp and mot_comp_uv one "
-        f"launch; launches: mc_frame and intra_scan over the {nframes}-frame "
-        f"LDB decode, the others over the {nframes}-frame RA16 decode "
-        f"(launches_ra16_path: all five there); {smi_line}")
+        f"launch, encode_scan one Y and one U/V launch at the 1080p I "
+        f"frame; launches: mc_frame and intra_scan over the {nframes}-frame "
+        f"LDB decode, the interpolation kernels over the {nframes}-frame "
+        f"RA16 decode (launches_ra16_path: those five there), encode_scan "
+        f"over the 3-frame 1080p all-intra encode; {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -10,6 +10,7 @@ import torch
 
 from thor_tpu_torch.dec.decoder import Decoder, decode_file
 from thor_tpu_torch.device import resolve_device
+from thor_tpu_torch.enc.encoder import Encoder, EncoderParams, encode_file
 
 from .conftest import REPO, TESTDATA
 
@@ -32,16 +33,25 @@ def test_port_imports_no_jax_and_no_thor_tpu():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 22       # ops.interp included
+    assert int(r.stdout.split()[0]) >= 34       # the enc package included
 
 
-def test_entry_points_raise_without_a_card():
+def test_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode_file(str(TESTDATA / "intra_only.bit"))
     with pytest.raises(RuntimeError):
         Decoder()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Encoder(EncoderParams(width=64, height=64, device_encode=1))
+    cfg = tmp_path / "enc.cfg"
+    cfg.write_text("-device_encode 1 -intra_period 1\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encode_file(str(cfg), str(TESTDATA / "test_cif.yuv"),
+                    str(tmp_path / "o.bit"), 352, 288, 1)
+    assert Encoder(EncoderParams(width=64, height=64, device_encode=1),
+                   device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"

@@ -6,9 +6,10 @@ All sources build at once, one nvcc process each, started together. The
 C entropy parser (native/thor_entropy.c) builds the same way with gcc.
 
 Outputs go to the package's `_build/` directory (listed in .gitignore),
-named by a hash of the source and flags, so an edited source rebuilds
-and concurrent processes never load a half-written file (each compiles
-to a private temporary name and renames it into place).
+named by a hash of the source, the shared headers (csrc/*.cuh) and the
+flags, so an edited source or header rebuilds and concurrent processes
+never load a half-written file (each compiles to a private temporary
+name and renames it into place).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "_build"
 CSRC = PKG / "csrc"
 
-CUDA_SOURCES = ("mc", "intra_scan", "interp_me", "interp_mc")
+CUDA_SOURCES = ("mc", "intra_scan", "interp_me", "interp_mc",
+                "enc_intra_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GCC_FLAGS = ("-O2", "-shared", "-fPIC")
@@ -37,6 +39,9 @@ _cuda_libs: dict = {}
 
 def _target(name: str, src: Path, flags) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    if src.suffix == ".cu":         # the headers a kernel source may include
+        for hdr in sorted(CSRC.glob("*.cuh")):
+            h.update(hdr.read_bytes())
     h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

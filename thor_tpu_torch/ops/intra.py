@@ -67,16 +67,22 @@ def _c127(x):
 
 
 def _predict(left, top, tl, ty, tx, s, mode):
-    """[C, s, s] prediction for C planes sharing one TU (modes of
+    """[C, s, s] prediction of C blocks of one size and mode (modes of
     common/intra_prediction.c:145-388; mode >= 10 folds to DC).
-    left/top: [C, 128] int32 context; tl: [C]."""
+    left/top: [C, 128] int32 context; tl: [C]; ty/tx: the block position,
+    ints when the C blocks are planes sharing one TU (the scans), or [C]
+    tensors (the encoder's search over all blocks of a frame)."""
     dev = left.device
     i = torch.arange(s, device=dev)[:, None]
     j = torch.arange(s, device=dev)[None, :]
     C = left.shape[0]
     if mode == 0 or mode >= 10:                      # DC
-        lv = left if tx != 0 else top
-        tv = top if ty != 0 else left
+        if torch.is_tensor(tx):
+            lv = torch.where((tx != 0)[:, None], left, top)
+            tv = torch.where((ty != 0)[:, None], top, left)
+        else:
+            lv = left if tx != 0 else top
+            tv = top if ty != 0 else left
         dc = (lv[:, :s].sum(1) + tv[:, :s].sum(1) + s) // (2 * s)
         return dc.to(I32)[:, None, None].expand(C, s, s)
     if mode == 1:                                    # PLANAR
@@ -146,31 +152,40 @@ def _predict(left, top, tl, ty, tx, s, mode):
                 torch.where((pd & 1) == 1, a_odd, a_even))))
 
 
+def tu_context(P, rec):
+    """(left [C, 128], top [C, 128], tl [C]) of one TU record on the
+    planes P [C, Hp, Wp], zero-padded by PADI / PADE: top[k] =
+    row[tx + min(k, toplen-1)] of the row above, left[k] likewise down the
+    column to the left, 128 at the frame's top / left edge, and the
+    top-left sample by the cbx rule (jax_kernels.intra_scan)."""
+    ty, tx, _, _, toplen, leftlen, cbx = rec
+    y, x = PADI + ty, PADI + tx
+    k = torch.arange(128, device=P.device)
+    full128 = torch.full((P.shape[0], 128), 128, dtype=I32, device=P.device)
+    trow = P[:, y - 1, x - 1:x + 129]               # [C, 130]
+    lcol = P[:, y:y + 128, x - 1]                   # [C, 128]
+    top = full128 if ty == 0 else \
+        trow[:, 1 + torch.clamp(k, max=toplen - 1)]
+    left = full128 if tx == 0 else \
+        lcol[:, torch.clamp(k, max=leftlen - 1)]
+    tl = left[:, 0] if ty == 0 else (trow[:, 0] if cbx else top[:, 0])
+    return left, top, tl
+
+
 def intra_scan_plain(planes, resid, recs):
     """Sequential intra reconstruction over TU records in decode order.
 
     planes/resid: [C, H, W] int32 (C = 1 luma, or 2 for U+V, which share
     TU geometry); recs: [N, 7] int32. Returns the updated [C, H, W] int32
-    planes. The context rule is jax_kernels.intra_scan's: on a plane
-    zero-padded by PADI/PADE, top[k] = row[tx + min(k, toplen-1)] of the
-    row above, left[k] likewise down the column to the left, 128 at the
-    frame's top / left edge, and the top-left sample by the cbx rule."""
+    planes, each TU predicted from the context tu_context gives it."""
     intra_scan_plain.calls += 1
     C, H, W = planes.shape
-    dev = planes.device
     P = F.pad(planes.to(I32), (PADI, PADE, PADI, PADE))
     Rp = F.pad(resid.to(I32), (PADI, PADE, PADI, PADE))
-    k = torch.arange(128, device=dev)
-    full128 = torch.full((C, 128), 128, dtype=I32, device=dev)
-    for ty, tx, s, mode, toplen, leftlen, cbx in recs.tolist():
+    for rec in recs.tolist():
+        ty, tx, s, mode = rec[:4]
         y, x = PADI + ty, PADI + tx
-        trow = P[:, y - 1, x - 1:x + 129]               # [C, 130]
-        lcol = P[:, y:y + 128, x - 1]                   # [C, 128]
-        top = full128 if ty == 0 else \
-            trow[:, 1 + torch.clamp(k, max=toplen - 1)]
-        left = full128 if tx == 0 else \
-            lcol[:, torch.clamp(k, max=leftlen - 1)]
-        tl = left[:, 0] if ty == 0 else (trow[:, 0] if cbx else top[:, 0])
+        left, top, tl = tu_context(P, rec)
         pred = _predict(left, top, tl, ty, tx, s, mode)
         P[:, y:y + s, x:x + s] = clip255(pred + Rp[:, y:y + s, x:x + s])
     return P[:, PADI:PADI + H, PADI:PADI + W].contiguous()

@@ -1,11 +1,13 @@
-"""Plain PyTorch ops of the decoder's frame program.
+"""Plain PyTorch ops of the decoder's frame program and of the encoder.
 
-The decode subset of thor_tpu/ops/jax_kernels.py, on int32 tensors. The
+The batched ops of thor_tpu/ops/jax_kernels.py, on int32 tensors. The
 JAX package runs these as XLA ops (no Pallas kernel), so plain tensor
 ops are their port: residual (dequant + inverse DCT + scatter),
-deblocking, CLPF and the MC phase-weight tables. Every op is exact
-integer arithmetic; `>>` on int32 tensors is an arithmetic shift, as in
-JAX and the C reference.
+deblocking, CLPF and the MC phase-weight tables for the decoder; forward
+transform, forward quantizer with its zero-run pass and the exact
+reconstruction from levels for the encoder. Every op is exact integer
+arithmetic; `>>` on int32 tensors is an arithmetic shift, as in JAX and
+the C reference.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import numpy as np
 import torch
 
 from ..codec.constants import (
-    FILTER_C, FILTER_Y_BI, FILTER_Y_CENTER, FILTER_Y_UNI)
+    FILTER_C, FILTER_Y_BI, FILTER_Y_CENTER, FILTER_Y_UNI, GDEQUANT_TABLE,
+    GQUANT_TABLE, log2i)
 from ..codec.dct_tables import TMAT_4, TMAT_8, TMAT_16, TMAT_32
 
 TMAT = {4: np.array(TMAT_4, np.float64), 8: np.array(TMAT_8, np.float64),
@@ -343,3 +346,165 @@ def edge_pad(plane, n: int):
     ri = torch.clamp(torch.arange(-n, H + n, device=dev), 0, H - 1)
     ci = torch.clamp(torch.arange(-n, W + n, device=dev), 0, W - 1)
     return plane[ri][:, ci]
+
+
+# ---------------------------------------------------------------------------
+# Encoder side (jax_kernels.py:1008-1142, device_intra.py:93)
+# ---------------------------------------------------------------------------
+
+def _wrap16(x):
+    """int32 -> int16 value range with wraparound (a C int16_t store)."""
+    return ((x + 32768) & 65535) - 32768
+
+
+def fwd_transform_batch(resid, size: int, fast: bool = False):
+    """[N, size, size] int residual -> [N, size, size] int32 coefficients
+    of int16 range (only the low min(size, 16)^2 nonzero), mirroring
+    common/transform.c:249-330: two matrix stages, each wrapped (not
+    saturated) to int16. Sizes above 16 with `fast`, and size 64 always,
+    first box-sum the residual down to 16 / 32. The products run in
+    float64, exact for the same reason as in idct_batch."""
+    n_in = resid.shape[0]
+    dsize = size
+    qsize = min(size, 16)
+    shift_1 = log2i(size)
+    shift_2 = shift_1 + 5
+    inb = resid.to(I32)
+    if size > 16 and fast:
+        shift_1 += 1 + (1 if size == 64 else 0)
+        shift_2 = 9
+        f = size // 16
+        inb = inb.reshape(-1, 16, f, 16, f).sum(dim=(2, 4))
+        size = 16
+    elif size == 64:
+        shift_1, shift_2 = 7, 10
+        inb = inb.reshape(-1, 32, 2, 32, 2).sum(dim=(2, 4))
+        size = 32
+    M = torch.as_tensor(TMAT[size][:qsize], device=resid.device)
+    add_1, add_2 = 1 << (shift_1 - 1), 1 << (shift_2 - 1)
+    # tmp[n,i,j] = sum_k M[i,k] in[n,j,k];
+    # coeff[n,i,j] = sum_k M[i,k] tmp[n,j,k]
+    tmp = torch.matmul(M, inb.to(torch.float64).transpose(1, 2)).to(I32)
+    tmp = _wrap16((tmp + add_1) >> shift_1)
+    coeff = torch.matmul(M, tmp.to(torch.float64).transpose(1, 2)).to(I32)
+    coeff = _wrap16((coeff + add_2) >> shift_2)
+    out = torch.zeros((n_in, dsize, dsize), dtype=I32, device=resid.device)
+    out[:, :qsize, :qsize] = coeff
+    return out
+
+
+def quantize_fwd_batch(coeff, qp: int, size: int, intra: bool, zigzag_inv,
+                       chroma: bool = False):
+    """Forward quantizer (enc/encode_block.c:75-172): zigzag scan,
+    last-position search with the 38 / -26 offsets, forward quantization
+    with the 102/51 and 115/90 offsets (chroma always takes the low one),
+    then the unconditional zero-run pass.
+
+    coeff: [N, size, size] int; zigzag_inv: [qsize^2] (array or tensor) with
+    scoeff[zz[i*q+j]] = coeff[i, j]. Returns ([N, size, size] int32
+    levels, [N] bool cbp). cbp is taken before the zero-run pass and
+    masks its result; the pass only ever writes +-1, so cbp equals
+    "any level nonzero" afterwards too."""
+    qsize = min(size, 16)
+    Nc = qsize * qsize
+    tr_log2size = log2i(size)
+    dev = coeff.device
+    scale = int(GQUANT_TABLE[qp % 6])
+    shift2 = 21 - tr_log2size + qp // 6
+
+    block = coeff[:, :qsize, :qsize].reshape(-1, Nc).to(I32)
+    zz = torch.as_tensor(zigzag_inv, dtype=torch.long, device=dev)
+    scoeff = torch.zeros_like(block)
+    scoeff[:, zz] = block
+
+    off_last = (38 if intra else -26) << (shift2 - 8)
+    off0 = (102 if intra else 51) << (shift2 - 8)
+    off1 = (115 if intra else 90) << (shift2 - 8)
+    absc = scale * scoeff.abs()
+    pos = _arange(Nc, dev)[None, :]
+    nz = ((absc + off_last).abs() >> shift2) != 0
+    last_pos = torch.where(nz, pos, -1).amax(dim=1)           # [N]
+
+    sign = (scoeff >> 31) | 1                 # -1 below zero, else 1
+    if chroma:
+        level = (absc + off0) >> shift2
+    else:
+        level = (absc + torch.where((absc >> shift2) == 0, off0, off1)) \
+            >> shift2
+    q = torch.where(pos <= last_pos[:, None], sign * level, 0)
+    cbp = (q != 0).any(dim=1)
+    q = _rdoq_light(q, scoeff, last_pos, qp, tr_log2size, Nc, chroma)
+    q = torch.where(cbp[:, None], q, 0)
+    out = torch.zeros((coeff.shape[0], size, size), dtype=I32, device=dev)
+    out[:, :qsize, :qsize] = q[:, zz].reshape(-1, qsize, qsize)
+    return out, cbp
+
+
+def _rdoq_light(q, scoeff, last_pos, qp: int, tr_log2size: int, Nc: int,
+                chroma: bool):
+    """The reference's unconditional zero-run adjustment
+    (enc/encode_block.c:134-168) on [N, Nc] scan-order levels.
+
+    The reference walks the positions 2..nn-1 in order. Position p
+    triggers when its level is above 1 after two zero levels (and the
+    levels 3 and 4 back allow it); then the smallest of the three raw
+    coefficients decides which of p, p-1, p-2 becomes +-1 (the sign of the
+    coefficient there). A step changes only positions p-2..p and a
+    trigger reads only positions p-4..p, so the walk is the same as
+    jumping from trigger to trigger: find each row's first trigger at or
+    after its cursor under the current levels, apply it, move the cursor
+    behind it, until no row has one. thor_tpu's XLA form steps through
+    every position (jax_kernels._rdoq_light); its TPU kernel jumps as
+    this does. The comparisons use the raw |coefficient|, not the scaled
+    magnitude."""
+    if Nc <= 2:
+        return q
+    dev = q.device
+    thr = (73 * int(GDEQUANT_TABLE[qp % 6]) << (qp // 6)) \
+        >> (4 + tr_log2size)
+    pos = _arange(Nc, dev)[None, :]
+    absv = scoeff.abs()
+    sgn = (scoeff >> 31) | 1
+    if chroma:
+        lp = last_pos[:, None]
+        allowed = (pos > 2) & (pos <= lp) | (pos == 2) & (lp >= 2) & (lp < 6)
+    else:
+        allowed = (pos > 2).expand_as(q)
+    q = q.clone()
+    cursor = torch.full((q.shape[0], 1), 2, dtype=I32, device=dev)
+    while True:
+        a = q.abs()
+        ap = torch.nn.functional.pad(a, (4, 0))   # zero levels before 0
+        am1, am2, am3, am4 = (ap[:, 4 - k:4 - k + Nc] for k in (1, 2, 3, 4))
+        act = (allowed & (pos >= cursor) & (a > 1) & (am1 == 0) & (am2 == 0)
+               & ~(am3 > 1) & ~((am4 > 1) & (am3 > 0)))
+        p = torch.where(act, pos, Nc).amin(dim=1, keepdim=True)
+        exists = p < Nc
+        if not bool(exists.any()):
+            return q
+        pc = torch.clamp(p, max=Nc - 1).long()
+        c0 = absv.gather(1, pc)
+        c1 = absv.gather(1, pc - 1)
+        c2 = absv.gather(1, pc - 2)
+        tgt = torch.where(c0 + torch.maximum(c1, c2) < thr, pc,
+                          torch.where(c1 > c2, pc - 1, pc - 2))
+        q.scatter_(1, tgt, torch.where(exists, sgn.gather(1, tgt),
+                                       q.gather(1, tgt)))
+        cursor = p + 1
+
+
+def recon_from_q(pred, q, s: int, qp: int):
+    """Exact dequantization + inverse transform + add + clip, the
+    decoder's arithmetic (common/common_block.c:132-156). pred, q:
+    [N, s, s]; a 64x64 block inverse-transforms its low 32x32 and repeats
+    every sample 2x2."""
+    rsh = log2i(s) - 1
+    fac = int(GDEQUANT_TABLE[qp % 6]) << (qp // 6)
+    rc = torch.clamp((q.to(I32) * fac + (1 << (rsh - 1))) >> rsh,
+                     -32768, 32767)
+    if s == 64:
+        rr = idct_batch(rc[:, :32, :32], 32)
+        rr = rr.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    else:
+        rr = idct_batch(rc, s)
+    return clip255(pred + rr)

@@ -62,6 +62,8 @@ def _group(name: str) -> str:
         return "me_level (csrc/interp_me.cu)"
     if "mc_kernel" in name:
         return "mc_frame (csrc/mc.cu)"
+    if "enc_intra_scan_kernel" in name:
+        return "encode_scan (csrc/enc_intra_scan.cu)"
     if "intra_scan_kernel" in name:
         return "intra_scan (csrc/intra_scan.cu)"
     if "Memcpy" in name or "memcpy" in name:
@@ -70,16 +72,18 @@ def _group(name: str) -> str:
     return "PyTorch kernels"
 
 
-def device_profile(path, dev):
-    """(wall ms of one decode, device ms by group, top kernels)."""
+def profile_run(run):
+    """Runs `run()` under torch.profiler (CPU + CUDA activities), ending
+    in a synchronize: (run's result, wall ms, device ms by group, the 12
+    kernels with most device time as (ms, launches, name), launches)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        n = sum(1 for _ in Decoder(device=dev).decode_stream(path))
+        result = run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    groups, kernels = {}, []
+    groups, kernels, launches = {}, [], 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -89,8 +93,16 @@ def device_profile(path, dev):
         g = _group(e.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
         kernels.append((us / 1e3, e.count, e.key[:90]))
+        launches += e.count
     kernels.sort(reverse=True)
-    return n, wall, groups, kernels[:12]
+    return result, wall, groups, kernels[:12], launches
+
+
+def device_profile(path, dev):
+    """(frames, wall ms of one decode, device ms by group, top kernels)."""
+    n, wall, groups, top, _ = profile_run(
+        lambda: sum(1 for _ in Decoder(device=dev).decode_stream(path)))
+    return n, wall, groups, top
 
 
 def main(argv=None):
