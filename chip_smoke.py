@@ -15,7 +15,12 @@ Phases (any failure exits nonzero):
      interpolated frame and on seeded correlated frames at (ratio, pos)
      (2,1), (4,3), (16,7). The encoder's intra scan on seeded tilings
      (luma and U+V, fast and exact transforms, intra and inter quantizer
-     offsets) and at the TU records of the 1080p encode's first frame;
+     offsets) and at the TU records of the 1080p encode's first frame.
+     The two multi-block kernels (intra scan, pyramid ME) also at the
+     shapes their scheduling can get wrong (more block rows than SMs, one
+     row, one column, a pure chain of TUs, scattered TUs, 4x4 TUs only, no
+     TU), each 20 times in a row with equal results and once while a
+     spinning kernel on a second stream holds most SMs;
   4. slices, each with every launch counter set to 0 just before and read
      just after: the 1080p LDB stream (sha256) and the LDB / intra CIF
      goldens; then the 1080p RA16 stream (sha256), the RA / RA16 / HDB CIF
@@ -131,7 +136,8 @@ def mc_bound(recs, R, Hp, Wp, T, C, H, W):
 def intra_bound(recs, C):
     """Bytes one intra_scan call must move: per TU its residual read and
     its pixels written (int32), its 2s+1 context samples read, and its
-    record. The TUs also form a serial chain of len(recs) steps."""
+    record. What holds the kernel back is the longest dependency chain
+    among the TUs (ops/intra.intra_levels), not these bytes."""
     s = recs[:, 2].long()
     per_plane = (8 * s * s + 4 * (2 * s + 1)).sum().item()
     return C * per_plane + recs.numel() * 4
@@ -207,6 +213,143 @@ def random_intra_case(seed, C, H, W, max_s, dev):
     resid = torch.from_numpy(rng.integers(-300, 300, (C, H, W)).astype(
         np.int32)).to(dev)
     return planes, resid, recs
+
+
+def intra_edge_cases(dev):
+    """[(label, planes, resid, recs)]: the shapes the multi-block intra
+    scan can get wrong. 4x4 TUs only, on the U/V pair, in raster order
+    with the up-right sample available; a pure chain (one row of 16x16
+    TUs, each reading its predecessor's last column); scattered TUs that
+    touch nothing, in a shuffled order; and two random tilings whose
+    availability flags do not follow decode order, so that TUs read
+    samples a later TU overwrites."""
+    from thor_tpu_torch.ops import intra as IT
+    rng = np.random.default_rng(90)
+    out = []
+
+    def case(label, C, H, W, tiles, toplen, leftlen):
+        ty, tx, s = (np.array([t[i] for t in tiles]) for i in range(3))
+        tus = {"ty": ty, "tx": tx, "size": s,
+               "mode": rng.integers(0, 10, len(tiles)),
+               "toplen": np.asarray(toplen), "leftlen": np.asarray(leftlen),
+               "cbx_nonzero": tx > 0}
+        recs = torch.from_numpy(IT.build_intra_records(tus, H, W)).to(dev)
+        planes, resid = (torch.from_numpy(rng.integers(
+            lo, hi, (C, H, W)).astype(np.int32)).to(dev)
+            for lo, hi in ((0, 256), (-300, 300)))
+        out.append((label, planes, resid, recs))
+
+    H, W = 64, 96
+    tiles = [(y, x, 4) for y in range(0, H, 4) for x in range(0, W, 4)]
+    case("4x4 TUs only, U+V", 2, H, W, tiles,
+         [4 + (y > 0 and x + 4 < W) for y, x, _ in tiles], [4] * len(tiles))
+    tiles = [(0, x, 16) for x in range(0, 1536, 16)]
+    case("pure chain", 1, 16, 1536, tiles, [16] * 96, [16] * 96)
+    tiles = [(64 * i, 64 * j, int(rng.choice([4, 8, 16, 32])))
+             for i in range(8) for j in range(8)]
+    tiles = [tiles[i] for i in rng.permutation(64)]
+    case("scattered TUs", 1, 512, 512, tiles,
+         [t[2] + 1 for t in tiles], [t[2] + 1 for t in tiles])
+    for label, args in (("random Y", (3, 1, 512, 512, 64)),
+                        ("random UV", (4, 2, 256, 256, 32))):
+        out.append((label, *random_intra_case(*args, dev)))
+    return out
+
+
+def me_case(seed, w, h, pad, guided, gmax, dev):
+    """Two correlated padded planes and a guide field on `dev`, so that
+    both the skip and the search path of the pyramid ME run."""
+    from thor_tpu_torch.ops import interp as TI
+    rng = np.random.default_rng(seed)
+    bw, bh = TI.me_grid(w, h)
+    p0, p1 = (rng.integers(0, 256, (h + 2 * pad, w + 2 * pad), np.uint8)
+              for _ in range(2))
+    p1[pad:pad + h, pad:pad + w] = np.clip(
+        p0[pad - 1:pad - 1 + h, pad + 1:pad + 1 + w].astype(np.int32)
+        + rng.integers(-3, 4, (h, w)), 0, 255).astype(np.uint8)
+    g = (rng.integers(-gmax, gmax + 1, (2, bh, bw)) * 8).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (p0, p1, g[0], g[1]))
+
+
+# (label, w, h, pad, guided, (wt0, wt1)): the shapes the row wavefront of
+# the pyramid ME can get wrong. (3, 1) are the weights of (ratio, pos) =
+# (4, 3), which takes the reversed path; (9, 7) those of (16, 7).
+ME_EDGE_CASES = (
+    ("272 block rows (more than SMs)", 256, 4352, 32, True, (1, 1)),
+    ("unguided, 12 block rows", 64, 192, 32, False, (9, 7)),
+    ("one block row", 512, 16, 32, True, (3, 1)),
+    ("one block column", 16, 512, 32, False, (1, 1)),
+    ("one block", 16, 16, 32, True, (3, 1)),
+    ("CIF, unequal weights", 352, 288, 96, True, (9, 7)),
+)
+
+
+def occupy_sms(blocks_per_sm, spare_sms, ms, stream):
+    """Launch the spinning test aid (csrc/occupy.cu) on `stream`: it holds
+    all but `spare_sms` SMs with `blocks_per_sm` blocks of 1024 threads
+    each for `ms` milliseconds."""
+    import ctypes
+    from thor_tpu_torch.ops import _build
+    L = _build.cuda_library("occupy")
+    L.thor_occupy.restype = ctypes.c_int
+    L.thor_occupy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_ulonglong,
+                                                    ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err = L.thor_occupy(blocks_per_sm * (sms - spare_sms), 1024,
+                        (220 * 1024) // blocks_per_sm - 1024,
+                        int(ms * 1e6), stream.cuda_stream)
+    if err:
+        raise RuntimeError(f"the occupy aid did not launch (CUDA error {err})")
+
+
+def repeat_check(what, kern, want, blocks_per_sm, repeats=20):
+    """`kern()` (a tuple of tensors) equals `want` `repeats` times in a
+    row, and once more while the occupy aid holds most SMs on a second
+    stream."""
+    for i in range(repeats + 1):
+        if i == repeats:
+            side = torch.cuda.Stream()
+            occupy_sms(blocks_per_sm, 8, 30.0, side)
+        got = kern()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(
+                f"{what}: run {i} differs from the plain version"
+                + (" (card partly occupied)" if i == repeats else ""))
+    torch.cuda.synchronize()
+    ms = time_ms(kern, warmup=1, iters=5)
+    log(f"[kernel] {what}: equal to plain {repeats} times in a row and once "
+        f"with most SMs held by another stream; kernel_ms={ms:.4f}")
+
+
+def phase_edge_shapes(dev):
+    """The two multi-block kernels at the shapes of intra_edge_cases and
+    ME_EDGE_CASES, against their plain versions."""
+    from thor_tpu_torch.ops import interp as TI
+    from thor_tpu_torch.ops import intra as IT
+    for label, planes, resid, recs in intra_edge_cases(dev):
+        want = IT.intra_scan_plain(planes, resid, recs)
+        lv = IT.intra_levels(recs.cpu().numpy())
+        repeat_check(f"intra_scan[{label}, {len(recs)} TUs on "
+                     f"{planes.shape[0]} planes, chain {lv.max()}]",
+                     lambda: (IT.intra_scan(planes, resid, recs),), (want,), 2)
+    planes, resid, recs = random_intra_case(3, 1, 64, 64, 16, dev)
+    n0 = IT.intra_scan.launches
+    got = IT.intra_scan(planes, resid, recs[:0])
+    if not torch.equal(got, planes) or IT.intra_scan.launches != n0:
+        raise AssertionError("intra_scan with no TU must return the planes "
+                             "and launch nothing")
+    log("[kernel] intra_scan[no TU]: the planes come back, nothing launched")
+    for i, (label, w, h, pad, guided, wts) in enumerate(ME_EDGE_CASES):
+        p0, p1, gx, gy = me_case(100 + i, w, h, pad, guided, 6, dev)
+        kw = dict(w=w, h=h, pad=pad, guided=guided)
+        t0 = time.perf_counter()
+        want = TI.me_level_plain(p0, p1, gx, gy, wts, **kw)
+        torch.cuda.synchronize()
+        bw, bh = TI.me_grid(w, h)
+        repeat_check(f"me_level[{label}: {w}x{h}, {bw // 2}x{bh // 2} blocks, "
+                     f"weights {wts}, plain_ms="
+                     f"{(time.perf_counter() - t0) * 1e3:.0f}]",
+                     lambda: TI.me_level(p0, p1, gx, gy, wts, **kw), want, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -340,13 +483,31 @@ def phase_kernels(dev):
     ry, rc = residual_planes(cfg0, inp0, dev)
     y0 = torch.zeros((1, H, W), dtype=torch.int32, device=dev)
     uv0 = torch.zeros((2, H // 2, W // 2), dtype=torch.int32, device=dev)
+    chains = []
     for label, planes, resid, recs, C in (
             ("Y", y0, ry[None].contiguous(), inp0["it_y"], 1),
             ("UV", uv0, rc, inp0["it_c"], 2)):
-        check("intra_scan", f"1080p I frame {label}, {len(recs)} TUs",
+        chains.append(int(IT.intra_levels(recs.cpu().numpy()).max()))
+        check("intra_scan", f"1080p I frame {label}, {len(recs)} TUs, "
+              f"chain {chains[-1]}",
               lambda: IT.intra_scan(planes, resid, recs),
               lambda: IT.intra_scan_plain(planes, resid, recs),
               (intra_bound(recs, C), 0))
+    # the first P frame's intra TUs: scattered, on the frame's own residual
+    # (timed, but not part of the per-frame row)
+    assert "it_y" in inp1
+    ry1, rc1 = residual_planes(cfg1, inp1, dev)
+    for label, planes, resid, recs, C in (
+            ("Y", y0, ry1[None].contiguous(), inp1["it_y"], 1),
+            ("UV", uv0, rc1, inp1["it_c"], 2)):
+        lv = int(IT.intra_levels(recs.cpu().numpy()).max())
+        want = IT.intra_scan_plain(planes, resid, recs)
+        if not torch.equal(IT.intra_scan(planes, resid, recs), want):
+            raise AssertionError(f"intra_scan[1080p P frame {label}] differs "
+                                 "from its plain version")
+        ms = time_ms(lambda: IT.intra_scan(planes, resid, recs))
+        log(f"[kernel] intra_scan[1080p P frame {label}, {len(recs)} TUs, "
+            f"chain {lv}] equal to plain; kernel_ms={ms:.4f}")
     for label, args in (("random Y", (3, 1, 512, 512, 64)),
                         ("random UV", (4, 2, 256, 256, 32))):
         planes, resid, recs = random_intra_case(*args, dev)
@@ -354,8 +515,9 @@ def phase_kernels(dev):
               lambda: IT.intra_scan(planes, resid, recs),
               lambda: IT.intra_scan_plain(planes, resid, recs),
               (intra_bound(recs, args[1]), 0), timed=False)
-    log(f"[kernel] intra scan serial chain at the 1080p I frame: "
-        f"{len(inp0['it_y'])} luma TUs, {len(inp0['it_c'])} chroma TUs")
+    log(f"[kernel] intra scan at the 1080p I frame: {len(inp0['it_y'])} luma "
+        f"TUs in a dependency chain of {chains[0]}, {len(inp0['it_c'])} "
+        f"chroma TUs in one of {chains[1]} (ops/intra.intra_levels)")
     return rows, max_err
 
 
@@ -465,8 +627,9 @@ def check_pyramid(label, r0, r1, ratio, pos, rows, max_err, timed):
             bound = (nbytes(a[0], a[1]) + (7 if kw["guided"] else 5)
                      * bw * bh * 4, 3 * (256 * e16 + 64 * e8))
             keep("me_level", what, lambda: TI.me_level(*a, **kw), plain_ms,
-                 bound, note=f"; serial chain {bw * bh // 4} blocks, "
-                 f"{e16} 16x16 and {e8} 8x8 SADs needed", iters=5)
+                 bound, note=f"; {bw * bh // 4} blocks in a chain of "
+                 f"{bw // 2 + bh - 2} steps, {e16} 16x16 and {e8} 8x8 SADs "
+                 f"needed", iters=5)
 
     ykw = dict(w=w, h=h, cs=TI.BLOCK_STEP // 2, clip_pad=TI.BLOCK_STEP // 4,
                base=TI.PAD_Y)
@@ -875,6 +1038,7 @@ def main():
     rows, max_err = phase_kernels(dev)
     rows_i, max_err_i = phase_interp_kernels(dev)
     rows_e, max_err_e = phase_enc_kernel(dev)
+    phase_edge_shapes(dev)
     for r, e in ((rows_i, max_err_i), (rows_e, max_err_e)):
         rows.update(r)
         max_err.update(e)

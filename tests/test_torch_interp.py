@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as S
 from thor_tpu_torch.ops import interp as TI
 
 try:
@@ -117,6 +118,20 @@ def test_me_level_plain_edges(w, h, gmax):
     p0, p1, g, _, _ = _me_case(11, w, h, pad, True, gmax=gmax)
     _same(_port_me(p0, p1, g, (5, 3), w, h, pad, True),
           _jax_me(p0, p1, g, (5, 3), w, h, pad, True))
+
+
+@pytest.mark.parametrize("w,h,guided", [(32, 80, True), (80, 16, True),
+                                        (80, 16, False), (16, 64, False)])
+def test_me_level_plain_wavefront_matches_raster_walk(w, h, guided):
+    """The plain version's wavefront order (and the kernel's: block row r
+    two blocks behind row r-1) against thor_tpu's raster walk on the grids
+    where the two orders differ most: 2x5 blocks (more rows than half the
+    columns, so the wavefront is never a full row), one block row (nothing
+    to wait for) and, unguided, one block column."""
+    pad = 32
+    p0, p1, g, _, _ = _me_case(13 + w + guided, w, h, pad, guided)
+    _same(_port_me(p0, p1, g, (3, 1), w, h, pad, guided),
+          _jax_me(p0, p1, g, (3, 1), w, h, pad, guided))
 
 
 def test_me_level_plain_matches_pallas_interpret():
@@ -261,6 +276,40 @@ def test_cuda_me_level_matches_plain(case):
     torch.cuda.synchronize()
     assert TI.me_level.launches == n0 + 1
     _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(S.ME_EDGE_CASES)))
+def test_cuda_me_level_edge_shapes(case):
+    """The shapes the row wavefront can get wrong (more block rows than
+    SMs, one row, one column, one block, unequal weights): equal to the
+    plain version 20 times in a row, and once more while a spinning kernel
+    on a second stream holds most SMs."""
+    dev = _cuda()
+    label, w, h, pad, guided, wts = S.ME_EDGE_CASES[case]
+    p0, p1, gx, gy = S.me_case(100 + case, w, h, pad, guided, 6, dev)
+    kw = dict(w=w, h=h, pad=pad, guided=guided)
+    want = TI.me_level_plain(p0, p1, gx, gy, wts, **kw)
+    S.repeat_check(f"me_level[{label}]",
+                   lambda: TI.me_level(p0, p1, gx, gy, wts, **kw), want, 1)
+
+
+@pytest.mark.gpu
+def test_cuda_me_level_stats_count_the_walk():
+    """The SAD counters do not depend on how the rows were scheduled: two
+    runs give the same two numbers, and the first is at least one skip
+    test per 16x16 block."""
+    dev = _cuda()
+    w, h, pad = 352, 288, 96
+    p0, p1, gx, gy = S.me_case(77, w, h, pad, True, 4, dev)
+    got = []
+    for _ in range(2):
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        TI.me_level(p0, p1, gx, gy, (3, 1), w=w, h=h, pad=pad, guided=True,
+                    stats=stats)
+        got.append(stats.tolist())
+    bw, bh = TI.me_grid(w, h)
+    assert got[0] == got[1] and got[0][0] >= bw * bh // 4
 
 
 @pytest.mark.gpu

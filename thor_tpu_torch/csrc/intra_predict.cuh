@@ -34,9 +34,63 @@ struct Ctx {
   int tl, dc;                    // top-left sample, DC value
 };
 
-// Builds the context of one TU in shared memory from the plane P. Every
-// thread of the block calls it (blockDim.x >= 128); it holds two barriers
-// and returns with the context complete and visible to all threads.
+// Second half of a TU's context: from the complete top / left samples, the
+// filtered arrays the modes read and the DC value. A group of `nthr`
+// threads calls it together, `tid` the thread's place in the group, with
+// the samples visible to all of them: a whole block (WARP false; threads
+// 0..31 must be one warp) or one warp (WARP true, nthr 32). mode < 0
+// builds everything (a caller that tries several modes on one context);
+// mode >= 0 only what predict() reads for that mode, and no entry beyond
+// 2s - 1, the highest any mode reads. It ends in the group's barrier,
+// after which the context is complete for every thread.
+template <bool WARP>
+__device__ __forceinline__ void filter_context(Ctx& c, int tid, int nthr,
+                                               int ty, int tx, int s,
+                                               int mode) {
+  const bool all = mode < 0;
+  const bool f1 = all || mode == 4 || mode == 7 || mode == 8;
+  const bool f2t = all || mode == 5 || mode == 6, f2l = all || mode == 9;
+  const bool planar = all || mode == 1;
+  const int kmax = all ? 128 : min(128, 2 * s);
+  for (int k = tid; k < kmax; k += nthr) {
+    const int km = max(k - 1, 0);
+    const int n1 = min(k + 1, s - 1), n2 = min(k + 1, 2 * s - 1);
+    if (f1) {
+      c.topF[k] = (c.top[km] + 2 * c.top[k] + c.top[n1] + 2) >> 2;
+      c.leftF[k] = (c.left[km] + 2 * c.left[k] + c.left[n1] + 2) >> 2;
+    }
+    if (f2t) c.topF2[k] = (c.top[km] + 2 * c.top[k] + c.top[n2] + 2) >> 2;
+    if (f2l) c.leftF2[k] = (c.left[km] + 2 * c.left[k] + c.left[n2] + 2) >> 2;
+    if (planar && k < s) {
+      const int a = max(k - 2, 0), b = max(k - 1, 0);
+      const int d = min(k + 1, s - 1), e = min(k + 2, s - 1);
+      c.topP[k] = c.top[a] + 2 * c.top[b] + 2 * c.top[k] + 2 * c.top[d]
+                  + c.top[e];
+      c.leftP[k] = c.left[a] + 2 * c.left[b] + 2 * c.left[k]
+                   + 2 * c.left[d] + c.left[e];
+    }
+  }
+  if (tid < 32 && (all || mode == 0 || mode >= 10)) {
+    const int* lv = tx != 0 ? c.left : c.top;
+    const int* tv = ty != 0 ? c.top : c.left;
+    int sum = 0;
+    for (int q = tid; q < s; q += 32) sum += lv[q] + tv[q];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_down_sync(0xffffffffu, sum, off);
+    if (tid == 0) c.dc = (sum + s) / (2 * s);
+  }
+  if (WARP) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+// Builds the context of one TU in shared memory from the plane P, for a
+// scan that walks all TUs of the plane in one thread block. Every thread
+// of the block calls it (blockDim.x >= 128); it holds two barriers and
+// returns with the context complete and visible to all threads.
 __device__ __forceinline__ void load_context(Ctx& c, const int* P, int H,
                                              int W, int ty, int tx, int s,
                                              int toplen, int leftlen,
@@ -48,39 +102,96 @@ __device__ __forceinline__ void load_context(Ctx& c, const int* P, int H,
     c.left[k] = tx == 0 ? 128 : ld(P, H, W, ty + min(k, leftlen - 1), tx - 1);
   }
   __syncthreads();
-
-  // (2) filtered context, top-left sample, DC value
-  if (k < 128) {
-    const int km = max(k - 1, 0);
-    const int n1 = min(k + 1, s - 1), n2 = min(k + 1, 2 * s - 1);
-    c.topF[k] = (c.top[km] + 2 * c.top[k] + c.top[n1] + 2) >> 2;
-    c.leftF[k] = (c.left[km] + 2 * c.left[k] + c.left[n1] + 2) >> 2;
-    c.topF2[k] = (c.top[km] + 2 * c.top[k] + c.top[n2] + 2) >> 2;
-    c.leftF2[k] = (c.left[km] + 2 * c.left[k] + c.left[n2] + 2) >> 2;
-    if (k < s) {
-      const int a = max(k - 2, 0), b = max(k - 1, 0);
-      const int d = min(k + 1, s - 1), e = min(k + 2, s - 1);
-      c.topP[k] = c.top[a] + 2 * c.top[b] + 2 * c.top[k] + 2 * c.top[d]
-                  + c.top[e];
-      c.leftP[k] = c.left[a] + 2 * c.left[b] + 2 * c.left[k]
-                   + 2 * c.left[d] + c.left[e];
-    }
-  }
+  // (2) top-left sample, filtered context, DC value
   if (k == 0) {
     c.tl = ty == 0 ? c.left[0]
                    : (cbx ? ld(P, H, W, ty - 1, tx - 1) : c.top[0]);
   }
-  if (k < 32) {
-    const int* lv = tx != 0 ? c.left : c.top;
-    const int* tv = ty != 0 ? c.top : c.left;
-    int sum = 0;
-    for (int q = k; q < s; q += 32) sum += lv[q] + tv[q];
+  filter_context<false>(c, k, blockDim.x, ty, tx, s, -1);
+}
+
+// A sample that an earlier TU of the same launch has yet to write reads
+// PENDING; no reconstructed pixel does (they are clipped to 0..255).
+constexpr int PENDING = static_cast<int>(0x80000000u);
+
+// The same context built by one warp, for one mode, in a scan whose TUs
+// run side by side on the card. `at` knows the planes: at.writer(y, x) is
+// the rank, in the scan's order, of the earlier TU of this launch that
+// writes the 4x4 cell of sample (y, x), or -1 (no such TU, or outside the
+// plane); at.peek(w, y, x) loads the sample once (0 outside the plane) and
+// gives PENDING where w is set and that TU has not stored it yet. ty and
+// tx are multiples of 4, so four context samples in a row lie in one cell:
+// a lane takes a cell, asks once who writes it, has its four loads in
+// flight together and repeats those that came back PENDING. The warp first
+// lets only the lane with the latest writer poll, and the others after
+// it, when most of them find their samples there: a waiting warp then
+// costs L2 one load at a time, not one per lane. Only the samples that
+// differ are fetched (toplen above, leftlen to the left, the top-left one
+// under the cbx rule); the replication beyond them is done in shared
+// memory, as far as the modes read (2s entries). All 32 lanes call it; it
+// returns with the context complete and visible to the warp.
+template <class Samples>
+__device__ __forceinline__ void load_context_warp(Ctx& c, const Samples& at,
+                                                  int lane, int ty, int tx,
+                                                  int s, int mode, int toplen,
+                                                  int leftlen, int cbx) {
+  const int nt = ty > 0 ? min(toplen, 128) : 0;
+  const int nl = tx > 0 ? min(leftlen, 128) : 0;
+  const int ct = (nt + 3) >> 2, cl = (nl + 3) >> 2;
+  const bool corner = ty > 0 && cbx;
+  // (1) context samples
+  for (int i0 = 0; i0 < ct + cl + corner; i0 += 32) {
+    const int i = i0 + lane;
+    const bool top = i < ct, left = !top && i < ct + cl;
+    const int m = top ? i : i - ct;
+    const int y0 = top ? ty - 1 : (left ? ty + 4 * m : ty - 1);
+    const int x0 = top ? tx + 4 * m : tx - 1;
+    const int dy = left ? 1 : 0, dx = top ? 1 : 0;
+    const int cnt = top ? min(4, nt - 4 * m)
+                        : (left ? min(4, nl - 4 * m)
+                                : (i < ct + cl + corner ? 1 : 0));
+    const int o = cnt > 0 ? at.writer(y0, x0) : -1;
+    const bool w = o >= 0;
+    const int latest = __reduce_max_sync(0xffffffffu, o);
+    unsigned spins = 0;
+    if (w && o == latest) {
+      while (at.peek(true, y0, x0) == PENDING) {
+        if (++spins > (1u << 24)) __trap();   // the TU that writes it is lost
+      }
+    }
+    __syncwarp();
+    int v[4];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_down_sync(0xffffffffu, sum, off);
-    if (k == 0) c.dc = (sum + s) / (2 * s);
+    for (int u = 0; u < 4; ++u) {
+      v[u] = u < cnt ? at.peek(w, y0 + u * dy, x0 + u * dx) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      while (v[u] == PENDING) {
+        if (++spins > (1u << 24)) __trap();
+        v[u] = at.peek(w, y0 + u * dy, x0 + u * dx);
+      }
+      if (u < cnt) {
+        if (top) {
+          c.top[4 * m + u] = v[u];
+        } else if (left) {
+          c.left[4 * m + u] = v[u];
+        } else {
+          c.tl = v[u];
+        }
+      }
+    }
   }
-  __syncthreads();
+  __syncwarp();
+  const int kmax = min(128, 2 * s);
+  for (int k = lane; k < kmax; k += 32) {
+    if (k >= nt) c.top[k] = ty == 0 ? 128 : c.top[nt - 1];
+    if (k >= nl) c.left[k] = tx == 0 ? 128 : c.left[nl - 1];
+  }
+  __syncwarp();
+  // (2) top-left sample, filtered context, DC value
+  if (lane == 0 && !corner) c.tl = ty == 0 ? c.left[0] : c.top[0];
+  filter_context<true>(c, lane, 32, ty, tx, s, mode);
 }
 
 // Prediction of pixel (i, j) of an s x s TU from a complete context.

@@ -27,6 +27,7 @@ CSRC = PKG / "csrc"
 
 CUDA_SOURCES = ("mc", "intra_scan", "interp_me", "interp_mc",
                 "enc_intra_scan")
+AID_SOURCES = ("occupy",)       # test aids, built in the same round
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GCC_FLAGS = ("-O2", "-shared", "-fPIC")
@@ -90,7 +91,7 @@ def cuda_library(name: str) -> ctypes.CDLL:
     source (in parallel) so one process pays for one build round."""
     if name not in _cuda_libs:
         paths = build_shared([(n, (nvcc(),), CSRC / f"{n}.cu", NVCC_FLAGS)
-                              for n in CUDA_SOURCES])
+                              for n in CUDA_SOURCES + AID_SOURCES])
         for n, p in paths.items():
             _cuda_libs[n] = ctypes.CDLL(str(p))
     return _cuda_libs[name]

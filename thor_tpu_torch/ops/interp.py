@@ -7,8 +7,9 @@ forms) and thor_tpu/ops/pallas_interp.py (the three TPU kernels):
 
 - pyramid build (2x2 box downscale) and the 2x MV upscale between levels:
   plain tensor ops on every device, as they are XLA ops in thor_tpu;
-- `me_level`: one pyramid level of bidirectional block ME in raster order
-  plus the merge smoothing pass (TPU kernel _me_level_kernel);
+- `me_level`: one pyramid level of bidirectional block ME plus the merge
+  smoothing pass (TPU kernel _me_level_kernel, which decides the blocks in
+  raster order);
 - `mot_comp`, `mot_comp_uv`: the averaged bi-MC synthesis of the luma plane
   and of the U/V pair (TPU kernels _mot_comp_kernel, _mot_comp_kernel_uv).
 
@@ -16,10 +17,12 @@ Each of the three has a CUDA kernel (csrc/interp_me.cu, csrc/interp_mc.cu)
 and a plain PyTorch version here. A wrapper takes the plain version for a
 CPU tensor; for a CUDA tensor it launches the kernel or raises.
 
-The plain ME does not walk the 16x16 blocks one by one: block (r, c) reads
-the decided vectors of (r-1, c+1), (r, c-1), (r-1, c) and (r-1, c-1), so
-all blocks with the same c + 2r are independent and are decided together,
-wavefront by wavefront, with the arithmetic of the raster walk.
+Neither the plain ME nor the kernel walks the 16x16 blocks one by one:
+block (r, c) reads the decided vectors of (r-1, c+1), (r, c-1), (r-1, c)
+and (r-1, c-1), so all blocks with the same c + 2r are independent. The
+plain version decides them together, wavefront by wavefront; the kernel
+gives every block row a thread block that runs two blocks behind the row
+above. Both keep the arithmetic of the raster walk.
 """
 
 from __future__ import annotations
@@ -461,7 +464,9 @@ def me_level(pic0p, pic1p, guide_x, guide_y, wts, *, w: int, h: int,
     wt0, wt1 = int(wts[0]), int(wts[1])
     if wt0 <= 0:
         raise ValueError("me_level: wt0 must be positive")
-    pre = torch.zeros((5, bh, bw), dtype=I32, device=dev)   # undecided: 0
+    # the five pre-merge maps (undecided: 0), then the row ticket and one
+    # progress counter per row of 16x16 blocks; zeroed on the stream
+    pre = torch.zeros(5 * bh * bw + bh // 2 + 1, dtype=I32, device=dev)
     out = torch.empty((5, bh, bw), dtype=I32, device=dev)
     L = _kernel("interp_me")
     _raise_on(L.thor_interp_me_level(

@@ -4,8 +4,11 @@ its TU records.
 
 Counterpart of thor_tpu/ops/pallas_intra.py (kernel 2 of the port). The
 scan is the decoder's one raster dependency: transform units (TUs) are
-predicted from already reconstructed neighbours, strictly in decode
-order. Records are the port's own, one row per TU:
+predicted from already reconstructed neighbours, with the result of a
+walk in decode order. The plain version walks that order; the kernel runs
+a TU as soon as the earlier TUs that wrote its context samples are done
+(`intra_levels` gives the depth of that dependency graph). Records are
+the port's own, one row per TU:
 
     ty, tx, size, mode, toplen, leftlen, cbx_nonzero
 
@@ -33,6 +36,8 @@ FIELDS = ("ty", "tx", "size", "mode", "toplen", "leftlen", "cbx_nonzero")
 PADI = 8
 PADE = 136
 
+SLICE = 512     # pixels of one unit of the kernel's work (csrc/intra_scan.cu)
+
 I32 = torch.int32
 
 
@@ -40,13 +45,48 @@ def build_intra_records(tus, H, W):
     """Decode-order TU dict (FIELDS -> [N] ints) -> [N, 7] int32 records.
     Every TU must lie inside the H x W plane: the kernel writes only
     inside the plane, where the JAX scan's fixed 64x64 window would also
-    have written into its padding."""
+    have written into its padding. Positions and sizes must be multiples
+    of 4 (the kernel finds a sample's writer by its 4x4 cell), and the
+    TUs of one frame must not overlap (those of a stream never do)."""
     recs = np.stack([np.asarray(tus[k], np.int64) for k in FIELDS], axis=1)
     ty, tx, s = recs[:, 0], recs[:, 1], recs[:, 2]
     if len(recs) and ((ty < 0).any() or (tx < 0).any()
                       or (ty + s > H).any() or (tx + s > W).any()):
         raise ValueError("intra TU outside the plane")
+    if ((ty | tx | s) & 3).any():
+        raise ValueError("intra TU not aligned to the 4x4 grid")
     return recs.astype(np.int32)
+
+
+def intra_levels(recs):
+    """[N] int64 levels of the scan's dependency graph: a TU's level is 1
+    plus the highest level among the earlier TUs that wrote one of its
+    context samples (row ty-1 from tx to tx+toplen-1, column tx-1 from ty
+    to ty+leftlen-1, and (ty-1, tx-1) under the cbx rule), 1 if there is
+    none. TUs of one level are independent; levels.max() is the length of
+    the chain that bounds the kernel. Host numpy, for tests and
+    measurement scripts: the decode path never calls it."""
+    recs = np.asarray(recs, np.int64).reshape(-1, NF)
+    if not len(recs):
+        return np.zeros(0, np.int64)
+    # level of the TU that covers each 4x4 cell so far (0: none); the
+    # margin takes the context of a TU at the far edge
+    ch = int((recs[:, 0] + recs[:, 2]).max()) // 4 + 33
+    cw = int((recs[:, 1] + recs[:, 2]).max()) // 4 + 33
+    cells = np.zeros((ch, cw), np.int64)
+    levels = np.zeros(len(recs), np.int64)
+    for t, (ty, tx, s, _, toplen, leftlen, cbx) in enumerate(recs.tolist()):
+        lvl = 0
+        if ty > 0:
+            x0 = tx - 1 if (cbx and tx > 0) else tx
+            lvl = cells[(ty - 1) // 4,
+                        x0 // 4:(tx + toplen - 1) // 4 + 1].max()
+        if tx > 0:
+            lvl = max(lvl, cells[ty // 4:(ty + leftlen - 1) // 4 + 1,
+                                 (tx - 1) // 4].max())
+        levels[t] = lvl + 1
+        cells[ty // 4:(ty + s) // 4, tx // 4:(tx + s) // 4] = lvl + 1
+    return levels
 
 
 # ---------------------------------------------------------------------------
@@ -207,11 +247,22 @@ def _kernel():
         L = _build.cuda_library("intra_scan")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         L.thor_intra_scan.restype = ci
-        L.thor_intra_scan.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp]
+        L.thor_intra_scan.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci, vp, vp]
         L.thor_cuda_error_string.restype = ctypes.c_char_p
         L.thor_cuda_error_string.argtypes = [ci]
         _lib = L
     return _lib
+
+
+def scan_scratch(C: int, H: int, W: int, n: int, dev):
+    """The kernel's scratch for n records on C planes of H x W: the unit
+    ticket and count, the unit table (a TU of more than SLICE pixels is
+    cut into slices, at most 8, and no more than the planes' pixels
+    allow) and the owner map of the 4x4 cells. The kernel initialises it
+    itself, on the stream."""
+    cap = C * min(64 * 64 // SLICE * n, n + H * W // SLICE)
+    return torch.empty(2 + cap + ((H + 3) // 4) * ((W + 3) // 4),
+                       dtype=I32, device=dev)
 
 
 def intra_scan(planes, resid, recs):
@@ -220,7 +271,8 @@ def intra_scan(planes, resid, recs):
     planes/resid: [C, H, W] int32; recs: [N, 7] int32 from
     build_intra_records. Returns the reconstructed [C, H, W] int32
     planes. A CPU tensor takes the plain version; a CUDA tensor launches
-    csrc/intra_scan.cu (on a copy of `planes`, which is left as it was).
+    csrc/intra_scan.cu (which writes a copy of `planes` and reads
+    `planes`, left as it was, wherever no earlier TU wrote).
     """
     if planes.device.type == "cpu":
         return intra_scan_plain(planes, resid, recs)
@@ -240,8 +292,10 @@ def intra_scan(planes, resid, recs):
     n = recs.shape[0]
     if n:
         L = _kernel()
+        scratch = scan_scratch(C, H, W, n, planes.device)
         err = L.thor_intra_scan(
-            out.data_ptr(), resid.data_ptr(), C, H, W, recs.data_ptr(), n,
+            planes.data_ptr(), out.data_ptr(), resid.data_ptr(), C, H, W,
+            recs.data_ptr(), n, scratch.data_ptr(),
             torch.cuda.current_stream(planes.device).cuda_stream)
         if err:
             raise RuntimeError("intra_scan launch failed: "

@@ -64,7 +64,7 @@ def _group(name: str) -> str:
         return "mc_frame (csrc/mc.cu)"
     if "enc_intra_scan_kernel" in name:
         return "encode_scan (csrc/enc_intra_scan.cu)"
-    if "intra_scan_kernel" in name:
+    if "intra_scan_" in name:      # the scan and its three prologue kernels
         return "intra_scan (csrc/intra_scan.cu)"
     if "Memcpy" in name or "memcpy" in name:
         return "memcpy " + ("HtoD" if "HtoD" in name else

@@ -1,0 +1,188 @@
+#!/usr/bin/env python3
+"""A/B of two builds of one of the port's CUDA kernels on one CUDA card.
+
+    python3 tools/ab_kernel.py interp_me other_interp_me.cu
+    python3 tools/ab_kernel.py intra_scan other_intra_scan.cu
+
+Builds thor_tpu_torch/csrc/<kernel>.cu ("tree") and the given source
+("other", for instance an earlier commit's file written out with
+`git show REV:thor_tpu_torch/csrc/<kernel>.cu`; it may include the
+tree's headers from csrc/). Runs both on the same inputs,
+in the order other, tree, tree, other, and prints the device ms of each
+run (CUDA events around a CUDA-graph replay of 5 calls) and whether the
+two outputs are equal to each other and to the main path's.
+
+interp_me: every pyramid level of two 1080p frame pairs, seeded
+correlated noise frames and the first interpolated frame of
+testdata/RA16_high_efficiency_1080.bit; both sources have the C entry
+thor_interp_me_level of the tree's signature, and the scratch (sized as
+the tree's kernel wants it) is zeroed before every launch of either. The
+two SAD counters (`stats`) of both builds are printed and compared.
+
+intra_scan: the Y and the U/V launch of the I frame and of the first P
+frame of testdata/LDB_medium_complexity_1080.bit. An "other" source
+without a `scratch` argument is called with the single-block entry's
+signature (planes updated in place, no input copy, no scratch).
+
+Run from the repo's root; needs a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as S                                    # noqa: E402
+from thor_tpu_torch.ops import _build                     # noqa: E402
+from thor_tpu_torch.ops import interp as TI               # noqa: E402
+from thor_tpu_torch.ops import intra as IT                # noqa: E402
+
+ORDER = ("other", "tree", "tree", "other")
+VP, CI = ctypes.c_void_p, ctypes.c_int
+
+
+def load(kernel: str, other: Path):
+    """{"other", "tree"} -> CDLL, both built in one round."""
+    flags = _build.NVCC_FLAGS + ("-I", str(_build.CSRC))
+    jobs = [(f"{kernel}_{name}", (_build.nvcc(),), src, flags)
+            for name, src in (("other", other),
+                              ("tree", _build.CSRC / f"{kernel}.cu"))]
+    paths = _build.build_shared(jobs)
+    return {name: ctypes.CDLL(str(paths[f"{kernel}_{name}"]))
+            for name in ("other", "tree")}
+
+
+def report(label, outs, main_path, res, extra=""):
+    same = bool((outs["other"] == outs["tree"]).all()) and \
+        bool((outs["tree"] == main_path).all())
+    print(f"{label}: outputs {'equal' if same else 'DIFFER'}{extra}; "
+          + " ".join(f"{k}={ms:.4f}ms" for k, ms in res), flush=True)
+    return same
+
+
+def ab_interp_me(libs, dev):
+    for L in libs.values():
+        L.thor_interp_me_level.restype = CI
+        L.thor_interp_me_level.argtypes = [VP, VP] + [CI] * 6 + [VP] * 6
+    w, h = 1920, 1080
+    levels = TI.num_levels(w, h)
+    ok = True
+    r1, r2, ratio, pos = S.first_interp_pair(dev)
+    for label, a, b, (ratio, pos) in (
+            ("seeded", *S.correlated_frames(8, w, h, (2, 3), dev), (2, 1)),
+            ("stream", r1, r2, (ratio, pos))):
+        rev, wt0, wt1 = TI.interp_weights(ratio, pos)
+        if rev:
+            a, b = b, a
+        calls = []
+        TI.estimate_motion(TI.build_pyramid(a.y, w, h, levels),
+                           TI.build_pyramid(b.y, w, h, levels), w, h,
+                           (wt0, wt1), on_level=lambda *c: calls.append(c))
+        for lvl, args, kw, maps in calls:
+            bw, bh = TI.me_grid(kw["w"], kw["h"])
+            pre = torch.zeros(5 * bh * bw + bh // 2 + 1, dtype=torch.int32,
+                              device=dev)
+            outs = {k: torch.empty((5, bh, bw), dtype=torch.int32,
+                                   device=dev) for k in libs}
+            guided = kw["guided"]
+
+            def run(k, stats=None):
+                pre.zero_()
+                err = libs[k].thor_interp_me_level(
+                    args[0].data_ptr(), args[1].data_ptr(), kw["w"], kw["h"],
+                    kw["pad"], wt0, wt1, int(guided),
+                    args[2].data_ptr() if guided else None,
+                    args[3].data_ptr() if guided else None, pre.data_ptr(),
+                    outs[k].data_ptr(),
+                    stats.data_ptr() if stats is not None else None,
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if err:
+                    raise RuntimeError(f"{k}: launch failed ({err})")
+
+            stats = {k: torch.zeros(2, dtype=torch.int64, device=dev)
+                     for k in libs}
+            for k in libs:
+                run(k, stats[k])
+            st = {k: v.tolist() for k, v in stats.items()}
+            res = [(k, S.time_ms(lambda: run(k), warmup=1, iters=5))
+                   for k in ORDER]
+            ok &= report(
+                f"interp_me {label} ({ratio},{pos}) level {lvl} "
+                f"{kw['w']}x{kw['h']}", outs, torch.stack(maps), res,
+                f", SAD counters other {st['other']} tree {st['tree']} "
+                f"{'equal' if st['other'] == st['tree'] else 'DIFFER'}")
+            ok &= st["other"] == st["tree"]
+    return ok
+
+
+def ab_intra_scan(libs, dev, other_has_scratch):
+    new_sig = [VP, VP, VP, CI, CI, CI, VP, CI, VP, VP]
+    old_sig = [VP, VP, CI, CI, CI, VP, CI, VP]
+    for k, L in libs.items():
+        L.thor_intra_scan.restype = CI
+        L.thor_intra_scan.argtypes = new_sig \
+            if k == "tree" or other_has_scratch else old_sig
+    from thor_tpu_torch.dec.reconstruct import residual_planes
+    seq, _, (cfg0, inp0), (cfg1, inp1, _) = S.first_frames(dev)
+    H, W = seq.height, seq.width
+    ok = True
+    for frame, cfg, inp in (("I", cfg0, inp0), ("P", cfg1, inp1)):
+        ry, rc = residual_planes(cfg, inp, dev)
+        for label, resid, recs in (("Y", ry[None].contiguous(), inp["it_y"]),
+                                   ("UV", rc, inp["it_c"])):
+            C, h, w = resid.shape
+            planes = torch.zeros_like(resid)
+            n = len(recs)
+            # room for either build's scratch
+            scratch = torch.empty(IT.scan_scratch(C, h, w, n, dev).numel()
+                                  + n * C, dtype=torch.int32, device=dev)
+            outs = {k: torch.empty_like(planes) for k in libs}
+
+            def run(k):
+                # inside a graph capture the current stream is another one
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                outs[k].copy_(planes)
+                if k == "tree" or other_has_scratch:
+                    err = libs[k].thor_intra_scan(
+                        planes.data_ptr(), outs[k].data_ptr(),
+                        resid.data_ptr(), C, h, w, recs.data_ptr(), n,
+                        scratch.data_ptr(), stream)
+                else:
+                    err = libs[k].thor_intra_scan(
+                        outs[k].data_ptr(), resid.data_ptr(), C, h, w,
+                        recs.data_ptr(), n, stream)
+                if err:
+                    raise RuntimeError(f"{k}: launch failed ({err})")
+
+            res = [(k, S.time_ms(lambda: run(k), warmup=1, iters=5))
+                   for k in ORDER]
+            chain = int(IT.intra_levels(recs.cpu().numpy()).max())
+            ok &= report(f"intra_scan 1080p {frame} frame {label}, {n} TUs, "
+                         f"chain {chain}", outs,
+                         IT.intra_scan(planes, resid, recs), res)
+    return ok
+
+
+def main(argv):
+    if len(argv) != 3 or argv[1] not in ("interp_me", "intra_scan"):
+        raise SystemExit(__doc__)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_kernel needs a CUDA device")
+    other = Path(argv[2])
+    libs = load(argv[1], other)
+    dev = torch.device("cuda")
+    if argv[1] == "interp_me":
+        ok = ab_interp_me(libs, dev)
+    else:
+        ok = ab_intra_scan(libs, dev, "void* scratch" in other.read_text())
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
