@@ -15,11 +15,15 @@ Phases (any failure exits nonzero):
      interpolated frame and on seeded correlated frames at (ratio, pos)
      (2,1), (4,3), (16,7). The encoder's intra scan on seeded tilings
      (luma and U+V, fast and exact transforms, intra and inter quantizer
-     offsets) and at the TU records of the 1080p encode's first frame.
-     The two multi-block kernels (intra scan, pyramid ME) also at the
-     shapes their scheduling can get wrong (more block rows than SMs, one
-     row, one column, a pure chain of TUs, scattered TUs, 4x4 TUs only, no
-     TU), each 20 times in a row with equal results and once while a
+     offsets) and at the TU records of the 1080p encode's first frame,
+     with the records' dependency chain, its widest level and the us per
+     level; the cost of one link by TU size (a pure chain of each size
+     across the 1080p width); the share of the MC call that its output
+     memset takes. The three multi-SM kernels (intra scan, encoder scan,
+     pyramid ME) also at the shapes their scheduling can get wrong (more
+     block rows or units than the card holds, one row, one column, a pure
+     chain of TUs, scattered TUs, 4x4 or 64x64 TUs only, all-zero levels,
+     no TU), each 20 times in a row with equal results and once while a
      spinning kernel on a second stream holds most SMs;
   4. slices, each with every launch counter set to 0 just before and read
      just after: the 1080p LDB stream (sha256) and the LDB / intra CIF
@@ -322,8 +326,8 @@ def repeat_check(what, kern, want, blocks_per_sm, repeats=20):
 
 
 def phase_edge_shapes(dev):
-    """The two multi-block kernels at the shapes of intra_edge_cases and
-    ME_EDGE_CASES, against their plain versions."""
+    """The three multi-SM kernels at the shapes of intra_edge_cases,
+    enc_edge_cases and ME_EDGE_CASES, against their plain versions."""
     from thor_tpu_torch.ops import interp as TI
     from thor_tpu_torch.ops import intra as IT
     for label, planes, resid, recs in intra_edge_cases(dev):
@@ -339,6 +343,23 @@ def phase_edge_shapes(dev):
         raise AssertionError("intra_scan with no TU must return the planes "
                              "and launch nothing")
     log("[kernel] intra_scan[no TU]: the planes come back, nothing launched")
+    from thor_tpu_torch.ops import enc_intra as EI
+    for label, planes, org, recs, qp, fast, intra in enc_edge_cases(dev):
+        want = EI.encode_scan_plain(planes, org, recs, qp, fast, intra)
+        chain, widest = chain_stats(recs)
+        repeat_check(f"encode_scan[{label}, {len(recs)} TUs on "
+                     f"{planes.shape[0]} planes, chain {chain}, widest level "
+                     f"{widest}, {int((want[1] != 0).sum())} nonzero levels]",
+                     lambda: EI.encode_scan(planes, org, recs, qp, fast,
+                                            intra),
+                     want, 1)
+    n0 = EI.encode_scan.launches
+    got, q16 = EI.encode_scan(planes, org, recs[:0], 30, False, True)
+    if not torch.equal(got, planes) or q16.shape[0] or \
+            EI.encode_scan.launches != n0:
+        raise AssertionError("encode_scan with no TU must return the planes "
+                             "and launch nothing")
+    log("[kernel] encode_scan[no TU]: the planes come back, nothing launched")
     for i, (label, w, h, pad, guided, wts) in enumerate(ME_EDGE_CASES):
         p0, p1, gx, gy = me_case(100 + i, w, h, pad, guided, 6, dev)
         kw = dict(w=w, h=h, pad=pad, guided=guided)
@@ -466,6 +487,11 @@ def phase_kernels(dev):
               lambda: M.mc_frame(refs, recs, lut, h, w),
               lambda: M.mc_frame_plain(refs, recs, lut, h, w),
               mc_bound(recs, R, refs.shape[2], refs.shape[3], T, C, h, w))
+        zeros_ms = time_ms(lambda: torch.zeros((C, h, w), dtype=torch.int32,
+                                               device=dev))
+        log(f"[kernel] mc_frame[1080p P frame {label}]: the wrapper's "
+            f"torch.zeros of the int32 output takes {zeros_ms:.4f} ms, "
+            f"{zeros_ms / rows['mc_frame'][-1][0] * 100:.1f} % of the call")
     # seeded random PU tilings at 1080p, uni + bi
     for label, args, lut in (
             ("random Y", (1, H, W, 1, 96, 2, -2, 6, 4, 64), luts[0]),
@@ -841,6 +867,62 @@ def random_enc_case(seed, C, H, W, min_s, max_s, dev):
     return planes, org, recs
 
 
+def enc_tiles_case(rng, C, H, W, tiles, dev, flat=False):
+    """(planes, org, recs) of an encoder scan over `tiles` [(y, x, s)] in
+    that order: random modes, the up-right samples where they lie in the
+    plane, seeded 0..255 start planes and originals (with `flat`, both
+    128 everywhere: every mode then predicts them exactly)."""
+    from thor_tpu_torch.ops import intra as IT
+    ty, tx, s = (np.array([t[i] for t in tiles]) for i in range(3))
+    tus = {"ty": ty, "tx": tx, "size": s,
+           "mode": rng.integers(0, 10, len(tiles)),
+           "toplen": s + ((ty > 0) & (tx + s < W)), "leftlen": s,
+           "cbx_nonzero": tx > 0}
+    recs = torch.from_numpy(IT.build_intra_records(tus, H, W)).to(dev)
+    planes, org = (torch.full((C, H, W), 128, dtype=torch.int32, device=dev)
+                   if flat else torch.from_numpy(rng.integers(
+                       0, 256, (C, H, W)).astype(np.int32)).to(dev)
+                   for _ in range(2))
+    return planes, org, recs
+
+
+def enc_edge_cases(dev):
+    """[(label, planes, org, recs, qp, fast, intra)]: the shapes the
+    multi-SM encoder scan can get wrong. 4x4 TUs on the U/V pair, 4 608
+    units, more than an H100 holds workers (4 224); a pure chain (a row of
+    16x16 TUs, each reading its predecessor's last column); one column of
+    TUs; all 64x64 TUs, exact and fast transforms; all-zero levels (a flat
+    original and start planes that every mode predicts exactly)."""
+    rng = np.random.default_rng(91)
+    tiles64 = [(y, x, 64) for y in range(0, 256, 64)
+               for x in range(0, 384, 64)]
+    cases = (
+        ("4x4 TUs only, U+V", 2, 192, 192,
+         [(y, x, 4) for y in range(0, 192, 4) for x in range(0, 192, 4)],
+         30, False, True),
+        ("pure chain", 1, 16, 1536, [(0, x, 16) for x in range(0, 1536, 16)],
+         27, False, False),
+        ("one column", 1, 1024, 16, [(y, 0, 16) for y in range(0, 1024, 16)],
+         33, True, True),
+        ("64x64 TUs only, exact", 1, 256, 384, tiles64, 22, False, True),
+        ("64x64 TUs only, fast", 1, 256, 384, tiles64, 37, True, False),
+        ("all-zero levels, U+V", 2, 128, 128,
+         [t[:3] for t in random_tiling(rng, 128, 128, 4, 32, clip=False)],
+         30, False, True))
+    return [(label, *enc_tiles_case(rng, C, H, W, tiles, dev,
+                                    flat=label.startswith("all-zero")),
+             qp, fast, intra)
+            for label, C, H, W, tiles, qp, fast, intra in cases]
+
+
+def chain_stats(recs):
+    """(longest dependency chain, TUs of the widest level) of a scan's
+    records (ops/intra.intra_levels)."""
+    from thor_tpu_torch.ops import intra as IT
+    lv = IT.intra_levels(recs.cpu().numpy())
+    return int(lv.max()), int(np.bincount(lv).max())
+
+
 def enc_scan_bound(recs, q16, C, H, W, fast):
     """(bytes, integer operations) one encode_scan call must do: the
     original read once and the plane written once (int32), the banks and
@@ -858,11 +940,28 @@ def enc_scan_bound(recs, q16, C, H, W, fast):
     return (2 * C * H * W * 4 + q16.numel() * 2 + recs.numel() * 4, ops)
 
 
+def enc_frame0(dev):
+    """(y, u, v, (luma records, qp), (chroma records, qp)) of the 1080p
+    encode's first frame: its original planes (int32 on `dev`) and the
+    records of its exact scan, from the port's own search."""
+    from thor_tpu_torch.codec.constants import CHROMA_QP
+    from thor_tpu_torch.enc import device_intra as DI
+    from thor_tpu_torch.enc.encoder import SQUARED_LAMBDA_QP
+    p = enc_params(ENC_1080)
+    y, u, v = (torch.from_numpy(a).to(dev).to(torch.int32)
+               for a in frames_1080()[0])
+    qpY, qpC = p.qp, int(CHROMA_QP[p.qp])
+    modes, split = DI.search_intra_frame(
+        y, u, v, qpY, qpC, p.lambda_coeffI * SQUARED_LAMBDA_QP[qpY],
+        p.width, p.height, p.encoder_speed > 1, 10)
+    recs_y, recs_c = DI.scan_records(
+        DI._walk_tree(split, modes, p.width, p.height), p.width, p.height)
+    return y, u, v, (recs_y, qpY), (recs_c, qpC)
+
+
 def phase_enc_kernel(dev):
     """Kernel 6 against its plain version: planes and coefficient banks
     equal. Returns (rows, max_err) like phase_kernels."""
-    from thor_tpu_torch.codec.constants import CHROMA_QP
-    from thor_tpu_torch.enc import device_intra as DI
     from thor_tpu_torch.ops import enc_intra as EI
     rows, max_err = {"encode_scan": []}, {"encode_scan": 0}
 
@@ -908,25 +1007,36 @@ def phase_enc_kernel(dev):
                       org, recs, 22 + seed % 17, fast, intra, timed=False)
 
     # the 1080p encode's first frame: its search, its records
-    p = enc_params(ENC_1080)
-    y, u, v = (torch.from_numpy(a).to(dev).to(torch.int32)
-               for a in frames_1080()[0])
-    from thor_tpu_torch.enc.encoder import SQUARED_LAMBDA_QP
-    qpY, qpC = p.qp, int(CHROMA_QP[p.qp])
-    modes, split = DI.search_intra_frame(
-        y, u, v, qpY, qpC, p.lambda_coeffI * SQUARED_LAMBDA_QP[qpY],
-        p.width, p.height, p.encoder_speed > 1, 10)
-    recs_y, recs_c = DI.scan_records(
-        DI._walk_tree(split, modes, p.width, p.height), p.width, p.height)
+    y, u, v, (recs_y, qpY), (recs_c, qpC) = enc_frame0(dev)
     sizes = np.bincount(recs_y[:, 2], minlength=65)
     by_size = ", ".join(f"{sizes[s]} of {s}x{s}" for s in (8, 16, 32, 64))
-    log(f"[kernel] 1080p I frame: {len(recs_y)} TUs, the serial chain of "
-        f"each plane class: {by_size}")
-    check("1080p I frame Y", torch.zeros_like(y)[None], y[None],
-          torch.from_numpy(recs_y).to(dev), qpY, False, True, timed=True)
-    check("1080p I frame UV", torch.zeros_like(torch.stack([u, v])),
-          torch.stack([u, v]), torch.from_numpy(recs_c).to(dev), qpC, False,
-          True, timed=True)
+    log(f"[kernel] 1080p I frame: {len(recs_y)} TUs per plane class "
+        f"({by_size} luma)")
+    for label, planes, org, recs, qp in (
+            ("Y", torch.zeros_like(y)[None], y[None], recs_y, qpY),
+            ("UV", torch.zeros_like(torch.stack([u, v])),
+             torch.stack([u, v]), recs_c, qpC)):
+        recs = torch.from_numpy(recs).to(dev)
+        check(f"1080p I frame {label}", planes, org, recs, qp, False, True,
+              timed=True)
+        chain, widest = chain_stats(recs)
+        log(f"[kernel] encode_scan[1080p I frame {label}]: a dependency "
+            f"chain of {chain} levels (ops/intra.intra_levels), the widest "
+            f"{widest} TUs; {rows['encode_scan'][-1][0] * 1e3 / chain:.3f} "
+            f"us per level")
+    # what one link of the chain costs, by TU size: a row of luma TUs
+    # across the 1080p width, each reading its predecessor's last column
+    rng = np.random.default_rng(92)
+    for s in (8, 16, 32, 64):
+        n = 1920 // s
+        planes, org, recs = enc_tiles_case(
+            rng, 1, s, 1920, [(0, x, s) for x in range(0, 1920, s)], dev)
+        check(f"pure chain of {n} {s}x{s} TUs", planes, org, recs, 32, False,
+              True, timed=False)
+        ms = time_ms(lambda: EI.encode_scan(planes, org, recs, 32, False,
+                                            True), warmup=2, iters=5)
+        log(f"[kernel] encode_scan[pure chain of {n} {s}x{s} TUs]: "
+            f"kernel_ms={ms:.4f}, {ms * 1e3 / n:.3f} us per link")
     return rows, max_err
 
 

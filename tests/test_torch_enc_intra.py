@@ -4,7 +4,9 @@ thor_tpu.enc.device_intra on the same seeded numpy inputs: search
 references, one search size, split decisions, the tree walk, the scan
 records, and the exact scan against the XLA scan and, on a tiny case, the
 Pallas kernel in interpret mode; the CUDA kernel against the plain version
-on the card.
+on the card. The dependency rule the CUDA kernel schedules by
+(ops/intra.intra_levels) is pinned on the CPU: the plain scan run level by
+level gives the coding-order planes and banks.
 
 All data are integers: the tolerance is exact equality.
 """
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as S
 from thor_tpu_torch.enc import device_intra as DI1
 from thor_tpu_torch.ops import enc_intra as EI
 from thor_tpu_torch.ops import intra as IT
@@ -336,3 +339,120 @@ def test_cuda_encode_scan_at_the_ends_of_the_qp_range(qp):
         pytest.skip("needs a CUDA device")
     _cuda_scan_equals_plain(1, 128, 128, 8, 64, False, True, qp)
     _cuda_scan_equals_plain(2, 64, 64, 4, 32, True, False, qp)
+
+
+# ---------------------------------------------------------------------------
+# the dependency rule behind the kernel's schedule (CPU)
+# ---------------------------------------------------------------------------
+
+def _causal_enc_case(seed, C, H, W, min_s, max_s):
+    """A random tiling whose availability flags follow coding order, as
+    the encoder's do: the up-right / down-left samples count as available
+    only where earlier TUs cover all of them."""
+    rng = np.random.default_rng(seed)
+    tus, planes, org = _random_enc_case(seed, C, H, W, min_s, max_s)
+    ty, tx, sz = tus["ty"], tus["tx"], tus["size"]
+    owner = np.full((H // 4 + 32, W // 4 + 32), -1, np.int64)
+    for t, (y, x, s) in enumerate(zip(ty, tx, sz)):
+        owner[y // 4:(y + s) // 4, x // 4:(x + s) // 4] = t
+    for t, (y, x, s) in enumerate(zip(ty, tx, sz)):
+        upr = owner[(y - 1) // 4, (x + s) // 4:(x + 2 * s) // 4] \
+            if y > 0 and x + 2 * s <= W else np.array([-1])
+        dnl = owner[(y + s) // 4:(y + 2 * s) // 4, (x - 1) // 4] \
+            if x > 0 and y + 2 * s <= H else np.array([-1])
+        ext = [int(rng.choice([0, 1, s])) if 0 <= o.min() and o.max() < t
+               else 0 for o in (upr, dnl)]
+        tus["toplen"][t], tus["leftlen"][t] = s + ext[0], s + ext[1]
+    return IT.build_intra_records(tus, H, W), planes, org
+
+
+def _encode_by_levels(planes, org, recs, qp, fast, intra):
+    """The plain scan over the records stably sorted by dependency level,
+    the bank rows put back in coding order."""
+    levels = IT.intra_levels(recs)
+    order = np.argsort(levels, kind="stable")
+    P, q = EI.encode_scan_plain(_t(planes), _t(org), _t(recs[order]), qp,
+                                fast, intra)
+    back = torch.empty_like(q)
+    back[torch.from_numpy(order)] = q
+    return P, back, levels
+
+
+@pytest.mark.parametrize("C,H,W,min_s,max_s", [(1, 128, 192, 8, 64),
+                                               (2, 64, 96, 4, 32)])
+@pytest.mark.parametrize("fast,intra", [(False, True), (True, False)])
+def test_levels_reproduce_coding_order(C, H, W, min_s, max_s, fast, intra):
+    """Seeded Y and U+V tilings with causal availability, fast and exact
+    transforms, intra and inter offsets."""
+    qp = 25 + 3 * C + 4 * fast
+    recs, planes, org = _causal_enc_case(50 + C + 2 * fast, C, H, W, min_s,
+                                         max_s)
+    want_p, want_q = EI.encode_scan_plain(_t(planes), _t(org), _t(recs), qp,
+                                          fast, intra)
+    got_p, got_q, levels = _encode_by_levels(planes, org, recs, qp, fast,
+                                             intra)
+    assert torch.equal(got_p, want_p) and torch.equal(got_q, want_q)
+    assert (want_q != 0).any()
+    # a real graph: fewer levels than TUs, more than one TU in some level
+    assert 1 < levels.max() < len(recs)
+    assert (levels[np.argsort(levels, kind="stable")] != levels).any()
+
+
+@pytest.mark.parametrize("W,H", [(192, 136), (200, 72)])
+def test_levels_reproduce_coding_order_on_encoder_records(W, H):
+    """The records the encoder's own tree walk gives (the codec's
+    availability rule), luma and the chroma pair."""
+    rng = np.random.default_rng(W * H)
+    host = _random_maps(rng, W, H)
+    modes, split = DI1.intra_split_decisions(host, W, H)
+    ry, rc = DI1.scan_records(DI1._walk_tree(split, modes, W, H), W, H)
+    for C, recs, h, w in ((1, ry, H, W), (2, rc, H // 2, W // 2)):
+        planes = np.zeros((C, h, w), np.int32)
+        org = rng.integers(0, 256, (C, h, w)).astype(np.int32)
+        want_p, want_q = EI.encode_scan_plain(_t(planes), _t(org), _t(recs),
+                                              30, False, True)
+        got_p, got_q, levels = _encode_by_levels(planes, org, recs, 30, False,
+                                                 True)
+        assert torch.equal(got_p, want_p) and torch.equal(got_q, want_q)
+        assert levels.max() < len(recs)
+
+
+def test_scan_scratch_holds_the_ticket_and_the_cells():
+    """One int32 for the unit ticket and one per 4x4 cell, the partial
+    cells of an edge included."""
+    assert EI.scan_scratch(1080, 1920, "cpu").numel() == 1 + 270 * 480
+    assert EI.scan_scratch(6, 10, "cpu").numel() == 1 + 2 * 3
+    assert EI.scan_scratch(8, 8, "cpu").dtype == torch.int32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(6))
+def test_cuda_encode_scan_edge_shapes(case):
+    """The shapes the multi-SM scan can get wrong (more units than resident
+    workers, a pure chain, one column of TUs, 64x64 TUs only with either
+    transform, all-zero levels): equal to the plain version 20 times in a
+    row, and once more while a spinning kernel on a second stream holds
+    most SMs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    label, planes, org, recs, qp, fast, intra = \
+        S.enc_edge_cases(torch.device("cuda"))[case]
+    want = EI.encode_scan_plain(planes.cpu(), org.cpu(), recs.cpu(), qp, fast,
+                                intra)
+    if label.startswith("all-zero"):
+        assert not want[1].any()
+    S.repeat_check(f"encode_scan[{label}]",
+                   lambda: EI.encode_scan(planes, org, recs, qp, fast, intra),
+                   tuple(w.to(planes.device) for w in want), 1)
+
+
+@pytest.mark.gpu
+def test_cuda_encode_scan_no_tu_launches_nothing():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    planes, org, recs = S.random_enc_case(3, 1, 64, 64, 8, 16,
+                                          torch.device("cuda"))
+    n0 = EI.encode_scan.launches
+    got, q16 = EI.encode_scan(planes, org, recs[:0], 30, False, True)
+    assert torch.equal(got, planes) and q16.shape == (0, 1, 16, 16)
+    assert EI.encode_scan.launches == n0

@@ -4,7 +4,10 @@ Pallas kernel in interpret mode; the CUDA kernel against the plain
 version on the card.
 
 Random quadtree-like PU tilings with random MVs, slots and bipred flags,
-in the style of tests/test_pallas_mc.py. Tolerance: exact equality.
+in the style of tests/test_pallas_mc.py. The rule the CUDA kernel's
+separable path relies on (every phase an outer product of its row and
+column sums over 64, but the luma (1/2, 1/2) one) is pinned on the CPU.
+Tolerance: exact equality.
 """
 
 import numpy as np
@@ -228,3 +231,99 @@ def test_cuda_mc_matches_plain(plane, past_pad):
     torch.cuda.synchronize()
     assert M.mc_frame.launches == n0 + 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("table", ["luma_uni", "luma_bi", "chroma"])
+def test_lut_phases_factor_by_their_sums(table):
+    """Every phase's T x T weights are fv (x) fh with fv, fh its row and
+    column sums over 64, except luma phase 10, the (1/2, 1/2) low-pass; and
+    a horizontal pass then a vertical one gives the integers of the T x T
+    sum on random windows."""
+    lut = {"luma_uni": build_luma_mc_lut(0), "luma_bi": build_luma_mc_lut(1),
+           "chroma": build_chroma_mc_lut()}[table].astype(np.int64)
+    rng = np.random.default_rng(len(table))
+    T = lut.shape[1]
+    win = rng.integers(0, 256, (50, T, T)).astype(np.int64)
+    for p, L in enumerate(lut):
+        rs, cs = L.sum(1), L.sum(0)
+        sep = (rs % 64 == 0).all() and (cs % 64 == 0).all() \
+            and np.array_equal(np.outer(rs // 64, cs // 64), L)
+        assert sep == (not (table != "chroma" and p == 10)), p
+        if sep:
+            two_d = (L[None] * win).sum(axis=(1, 2))
+            hv = ((win * (cs // 64)[None, None, :]).sum(2)
+                  * (rs // 64)[None, :]).sum(1)
+            assert np.array_equal((two_d + 2048) >> 12, (hv + 2048) >> 12)
+
+
+def _every_phase_pus(seed, plane, H, W, R, has_bi):
+    """A random tiling whose list-0 and list-1 MVs walk through every
+    fractional phase of the plane (16 luma, 64 chroma) in turn."""
+    rng = np.random.default_rng(seed)
+    pad, fb, _, _, _, _, _ = PLANES[plane]
+    pus = _gen(rng, H, W, R, plane, has_bi)
+    n = len(pus["y0"])
+    ph = np.arange(n) % (1 << 2 * fb)
+    lim = (pad - 8) // 2
+    for k, sh in (("mvx0", 0), ("mvy0", fb), ("mvx1", fb), ("mvy1", 0)):
+        frac = (np.roll(ph, 3 * (k[-1] == "1")) >> sh) & ((1 << fb) - 1)
+        pus[k] = (rng.integers(-lim, lim + 1, n) << fb) + frac
+    return pus
+
+
+def _cuda_equals_plain(refs, recs, plane, H, W):
+    _, lut = _lut(plane)
+    want = M.mc_frame_plain(torch.from_numpy(refs), torch.from_numpy(recs),
+                            lut, H, W)
+    dev = torch.device("cuda")
+    n0 = M.mc_frame.launches
+    got = M.mc_frame(torch.from_numpy(refs).to(dev),
+                     torch.from_numpy(recs).to(dev), lut.to(dev), H, W)
+    torch.cuda.synchronize()
+    assert M.mc_frame.launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+@pytest.mark.parametrize("has_bi", [False, True])
+def test_cuda_mc_every_phase(plane, has_bi):
+    """Every phase, the (1/2, 1/2) luma one, which takes the kernel's 2-D
+    path, included; uni and bi PUs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    H, W = (128, 192) if plane == "luma" else (96, 128)
+    pad, fb, tap_lo, _, _, _, T = PLANES[plane]
+    pus = _every_phase_pus(30 + has_bi, plane, H, W, 2, has_bi)
+    recs, clamped = M.build_mc_records(pus, H, W, pad, fb, tap_lo, T)
+    assert clamped == 0
+    phases = set(recs[:, M.R_P0].tolist()) | set(recs[:, M.R_P1].tolist())
+    assert phases == set(range(1 << 2 * fb))
+    refs = np.random.default_rng(31).integers(
+        0, 256, (1 if plane == "luma" else 2, 2, H + 2 * pad, W + 2 * pad),
+        dtype=np.uint8)
+    _cuda_equals_plain(refs, recs, plane, H, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+@pytest.mark.parametrize("past_pad", [False, True])
+def test_cuda_mc_one_reference_odd_widths(plane, past_pad):
+    """R = 1, and planes whose width is a multiple of no tile (198 luma,
+    99 chroma: pieces 2 and 3 wide at the right edge, padded rows that
+    start at every byte offset of a word), with and without clamped
+    cells."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    H, W = (136, 198) if plane == "luma" else (68, 99)
+    refs, pus = _case(40 + past_pad, plane, True, H, W, R=1)
+    pad, fb, tap_lo, _, _, max_s, T = PLANES[plane]
+    if past_pad:
+        lim = (pad + 3 * max_s) << fb
+        for k in ("mvx0", "mvy0", "mvx1", "mvy1"):
+            pus[k] = np.random.default_rng(41).integers(
+                -lim, lim + 1, len(pus["y0"]))
+    recs, clamped = M.build_mc_records(pus, H, W, pad, fb, tap_lo, T)
+    assert (clamped > 0) == past_pad
+    assert (refs.shape[3] % 4) != 0
+    _cuda_equals_plain(refs, recs, plane, H, W)

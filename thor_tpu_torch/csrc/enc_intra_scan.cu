@@ -15,46 +15,72 @@
 // the JAX package (fwd_transform_batch, quantize_fwd_batch with
 // chroma=False for every plane, _recon_from_q).
 //
-// Design. The TUs form a chain (each TU's context reads the
-// reconstruction of earlier ones), so one CUDA block walks the whole record
-// list of one plane (gridDim.x = C: 1 for luma, 2 for U and V, which share
-// TU geometry), as the decoder's scan does; context and prediction are the
-// decoder's code (intra_predict.cuh). Everything of a TU lives in shared
-// memory (24 KB): the prediction tile, the (box-summed) residual, both
-// transform stages as integer dot products a thread computes for its own
-// outputs, the scan vector, the levels. The transform matrix and the
-// zigzag tables are copied from constant to shared memory once, since
-// lanes read different entries. Quantization runs one thread per scan
-// position; the last significant position is an atomicMax in shared
-// memory. The zero-run pass is sequential by nature (a change at p alters
-// the tests at p+1..p+4): warp 0 tests 32 positions at a time under the
-// current levels, a ballot finds the first position that fires, one lane
-// applies its change and the window restarts behind it, so the pass costs
-// (positions / 32 + changes) steps, not one step per position. A TU whose
-// levels are all zero skips the inverse transform. What the TPU kernel
-// needed and this one does not: a transposed plane copy and aligned
-// window rolls, the split of int16 operands into bytes for exact f32
-// matrix products, one-hot matrix products for zigzag, fold, embed and
-// blend, chunked records with a valid flag.
+// Design. Coding order is a total order, but a TU depends only on the
+// earlier TUs that wrote its context samples: on a 1080p I frame a chain
+// of about 570 links over about 4 200 TUs per plane class
+// (ops/intra.intra_levels). So the TUs run on all SMs with the schedule of
+// the decoder's scan (scan_common.cuh): two prologue kernels clear the
+// ticket, build the owner map of the 4x4 cells and mark every TU pixel
+// PENDING in the output planes; then resident warps take units, one
+// (TU, plane) each, U and V of a TU being two units, in coding order from
+// an atomic ticket, wait in load_context_warp for the samples an earlier
+// TU writes, and run the whole TU alone:
+//   - a warp, not a block, per unit: the transform needs the whole TU, so a
+//     unit is never sliced, and a warp turns the dozen block barriers a TU
+//     paid in a one-block walk into warp barriers;
+//   - the working set of a unit is 6.2 KB of shared memory, all int16 (the
+//     context, the box-summed residual, one transform stage, the scan
+//     vector, the levels; the dequantized block reuses the scan vector and
+//     the inverse output the residual); the prediction is recomputed where
+//     it is needed rather than held as a tile, and the transform matrices
+//     (int8) and the zigzag tables are kept once per block. That puts 32
+//     warps on an SM, 4 224 units in flight on an H100;
+//   - a link of the chain is the TU's whole predict / transform / quantize
+//     / inverse / store sequence on one warp, so nothing hides a step's
+//     latency but the steps beside it: the original is box-summed before
+//     the warp waits for its context; the pixel loops are compiled once per
+//     mode and box size and the dot products once per length (by_mode,
+//     by_len, by_box), so their iterations overlap; the dot products take
+//     4 products in two __dp2a (int16 data against int8 matrix rows), a
+//     lane two outputs at a time; the reconstruction computes four pixels
+//     a lane before it stores them. Measured on an H100, this took a
+//     64x64 link from 56 to 26 us and an 8x8 one from 5.1 to 4.8 (pure
+//     chains, chip_smoke.py);
+//   - quantization is a lane per scan position with a warp max for the last
+//     significant one; the zero-run pass (a change at p alters the tests at
+//     p+1..p+4) tests 32 positions at a time under the current levels, a
+//     ballot finds the first that fires, one lane applies it and the
+//     window restarts behind it: (positions / 32 + changes) steps;
+//   - a TU whose levels are all zero skips the inverse transform.
+// A unit only waits on units with lower tickets, and only a running warp
+// takes a ticket, so every grid size is free of deadlock (a wait that
+// never ends traps after 2^24 polls).
 //
 // Bound. Bytes: the original read once, the plane written once (int32
 // both), 512 B of bank per TU and plane. Operations: the four matrix
 // stages, 2 * (qs*n*n + qs*qs*n) forward and 2 * (m*qs*qs + m*m*qs)
-// inverse per TU (qs = min(s, 16)). Neither is what it takes: a TU pays
-// about a dozen barriers and two dependent L2 round trips, and one SM of
-// 132 does the work, so the time is (number of TUs) x (per-TU latency). A
-// wavefront over independent TUs is later work, as for the decoder's scan.
+// inverse per TU (qs = min(s, 16)). Neither is what it takes: the longest
+// dependency chain among the TUs, each link weighted by its TU's latency
+// on one warp (the poll that sees a neighbour's pixel at L2, then the
+// TU's own sequence, which grows with its size).
+
+#include <type_traits>
 
 #include "intra_predict.cuh"
+#include "scan_common.cuh"
 
 namespace {
 
 using namespace thor;
 
-constexpr int NF = 7;       // ty, tx, size, mode, toplen, leftlen, cbx
-constexpr int NT = 256;     // threads per block
-constexpr int TS = 33;      // row stride of the 32-wide shared tiles: a
-//                             walk down a column hits 32 different banks
+constexpr int WARPS = 8;            // units a block holds at once
+constexpr int NT = 32 * WARPS;
+constexpr int BLOCKS_PER_SM = 4;    // 4 x 50.6 KB of shared memory
+constexpr int TS = 34;   // row stride of the 32-wide int16 tiles and
+constexpr int TR = 18;   // of the 16-wide ones: an odd number of words, so
+//                          a row starts on a word and a walk down a column
+//                          hits 32 different banks
+constexpr unsigned ALL = 0xffffffffu;
 
 // HEVC-style 32-point integer DCT basis (common/transform.c g4mat_hevc).
 // The n-point matrix is its rows 0, 32/n, 2*32/n, ... cut to n columns.
@@ -159,53 +185,151 @@ __device__ __forceinline__ int sat16(int x) {
   return x < -32768 ? -32768 : (x > 32767 ? 32767 : x);
 }
 
-__global__ void __launch_bounds__(NT)
-enc_intra_scan_kernel(int* __restrict__ planes, const int* __restrict__ org,
-                      int H, int W, const int* __restrict__ recs, int nrec,
-                      short* __restrict__ q16, int scale, int qp6, int fac,
-                      int dq73, int fast, int intra) {
-  __shared__ Ctx c;
-  __shared__ unsigned char pred[64 * 64];
-  __shared__ int inb[32 * TS];   // folded residual; later the inverse output
-  __shared__ int tmp[32 * TS];   // first stage of either transform
-  __shared__ int M[32 * TS];     // kTmat32
-  __shared__ int sco[256];       // coefficients in scan order
-  __shared__ int q[256];         // levels in scan order
-  __shared__ int rc[256];        // dequantized levels, 16x16 block layout
-  __shared__ unsigned char zzs[16 + 64 + 256];
-  __shared__ int s_last;
 
-  const size_t HW = static_cast<size_t>(H) * W;
-  const int C = gridDim.x, pl = blockIdx.x;
-  int* P = planes + pl * HW;
-  const int* O = org + pl * HW;
-  const int k = threadIdx.x;
+// The n-point matrices (rows 0, 32/n, 2*32/n, ... of kTmat32, cut to n
+// columns), n = 4, 8, 16, 32, as int8 in shared memory, once as they are
+// and once transposed, so that every stage of either transform reads a
+// row of each operand: 4 int8 in a word against 2 int16 in a word, two
+// __dp2a per 4 products. Rows of 8 and more are padded by a word to an odd
+// number of words (no bank conflict down a column).
+__host__ __device__ constexpr int mat_off(int nl) {     // n = 1 << nl
+  return nl == 2 ? 0 : (nl == 3 ? 16 : (nl == 4 ? 112 : 432));
+}
+__host__ __device__ constexpr int mat_row(int nl) {     // row stride, bytes
+  return nl == 2 ? 4 : (1 << nl) + 4;
+}
+constexpr int MAT = mat_off(5) + 32 * mat_row(5);       // 1 584 bytes
 
-  for (int o = k; o < 32 * 32; o += NT)
-    M[(o >> 5) * TS + (o & 31)] = kTmat32[o >> 5][o & 31];
-  for (int o = k; o < 16 + 64 + 256; o += NT) zzs[o] = kZigzag[o];
+// A warp runs a unit alone, so nothing hides the latency of a step but
+// the steps beside it: the loops over a TU's pixels and the dot products
+// are compiled for each mode and each length (by_mode, by_len), which lets
+// their iterations overlap. f(Int<v>) for the run-time value v.
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+template <class F>
+__device__ __forceinline__ void by_mode(int mode, F&& f) {  // >= 10: DC
+  switch (mode) {
+    case 1: f(Int<1>()); break;
+    case 2: f(Int<2>()); break;
+    case 3: f(Int<3>()); break;
+    case 4: f(Int<4>()); break;
+    case 5: f(Int<5>()); break;
+    case 6: f(Int<6>()); break;
+    case 7: f(Int<7>()); break;
+    case 8: f(Int<8>()); break;
+    case 9: f(Int<9>()); break;
+    default: f(Int<0>());
+  }
+}
+
+template <class F>
+__device__ __forceinline__ void by_len(int nl, F&& f) {     // 1 << nl, 2..5
+  switch (nl) {
+    case 2: f(Int<2>()); break;
+    case 3: f(Int<3>()); break;
+    case 4: f(Int<4>()); break;
+    default: f(Int<5>());
+  }
+}
+
+template <class F>
+__device__ __forceinline__ void by_box(int fl, F&& f) {     // 1 << fl, 0..2
+  switch (fl) {
+    case 0: f(Int<0>()); break;
+    case 1: f(Int<1>()); break;
+    default: f(Int<2>());
+  }
+}
+
+// Two dot products side by side, sum_k a[k] b[k] over k < N (a multiple
+// of 4): a int16, b int8, all word-aligned; the second only where `two`.
+template <int N>
+__device__ __forceinline__ void dot2(const short* a0, const signed char* b0,
+                                     const short* a1, const signed char* b1,
+                                     bool two, int& c0, int& c1) {
+  const int* x0 = reinterpret_cast<const int*>(a0);
+  const int* y0 = reinterpret_cast<const int*>(b0);
+  const int* x1 = reinterpret_cast<const int*>(a1);
+  const int* y1 = reinterpret_cast<const int*>(b1);
+  c0 = c1 = 0;
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    const int m0 = y0[k];
+    c0 = __dp2a_lo(x0[2 * k], m0, c0);
+    c0 = __dp2a_hi(x0[2 * k + 1], m0, c0);
+    if (two) {
+      const int m1 = y1[k];
+      c1 = __dp2a_lo(x1[2 * k], m1, c1);
+      c1 = __dp2a_hi(x1[2 * k + 1], m1, c1);
+    }
+  }
+}
+
+// One unit's working set in shared memory, a warp's own.
+struct Unit {
+  Ctx16 c;
+  short inb[32 * TS];   // residual, box-summed; later the inverse output
+  short tmp[32 * TR];   // first stage of either transform (forward: qs x n
+  //                       at stride TS)
+  short sco[16 * TR];   // coefficients in scan order; later the dequantized
+  //                       16x16 block, transposed
+  short q[256];         // levels in scan order
+};
+static_assert(sizeof(Unit) % 4 == 0, "every unit starts on a word");
+
+constexpr int HEAD = 2 * MAT + 16 + 64 + 256;   // matrices, zigzag tables
+constexpr int SMEM = HEAD + WARPS * static_cast<int>(sizeof(Unit));
+static_assert(HEAD % 16 == 0, "the units start 16-byte aligned");
+
+__global__ void __launch_bounds__(NT, BLOCKS_PER_SM)
+enc_intra_scan_kernel(const int* __restrict__ in, int* out,
+                const int* __restrict__ org, int C, int H, int W,
+                const int* __restrict__ recs, int nrec,
+                const int* __restrict__ owner, int* ticket,
+                short* __restrict__ q16, int scale, int qp6, int fac,
+                int dq73, int fast, int intra) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  signed char* Mn = reinterpret_cast<signed char*>(smem);
+  signed char* MnT = Mn + MAT;
+  unsigned char* zzs = smem + 2 * MAT;
+  Unit& u = reinterpret_cast<Unit*>(smem + HEAD)[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  for (int nl = 2; nl <= 5; ++nl) {
+    const int n = 1 << nl, off = mat_off(nl), rs = mat_row(nl);
+    for (int o = threadIdx.x; o < n * n; o += NT) {
+      const int i = o >> nl, k = o & (n - 1);
+      const signed char v = kTmat32[i << (5 - nl)][k];
+      Mn[off + i * rs + k] = v;
+      MnT[off + k * rs + i] = v;
+    }
+  }
+  for (int o = threadIdx.x; o < 16 + 64 + 256; o += NT) zzs[o] = kZigzag[o];
   __syncthreads();
 
+  const size_t HW = static_cast<size_t>(H) * W;
+  const int units = nrec * C;
   const int off_last_b = intra ? 38 : -26;
   const int off0_b = intra ? 102 : 51, off1_b = intra ? 115 : 90;
 
-  for (int t = 0; t < nrec; ++t) {
-    const int* rec = recs + static_cast<size_t>(t) * NF;
+  int qt = 0;
+  if (lane == 0) qt = atomicAdd(ticket, 1);
+  qt = __shfl_sync(ALL, qt, 0);
+  while (qt < units) {
+    // the next unit's ticket, drawn now and needed after this unit
+    int next = 0;
+    if (lane == 0) next = atomicAdd(ticket, 1);
+    const int t = qt / C, pl = qt - t * C;
+    const int* rec = recs + static_cast<size_t>(t) * SCAN_NF;
     const int ty = rec[0], tx = rec[1], s = rec[2], mode = rec[3];
     const int toplen = rec[4], leftlen = rec[5], cbx = rec[6];
-
-    // (1), (2) context, as in the decoder's scan
-    load_context(c, P, H, W, ty, tx, s, toplen, leftlen, cbx);
-
-    // (3) prediction tile
-    const int lg = __ffs(s) - 1;               // s is a power of two
-    for (int p = k; p < s * s; p += NT)
-      pred[p] = static_cast<unsigned char>(
-          predict(c, s, mode, p >> lg, p & (s - 1)));
+    int* P = out + pl * HW;
+    const int* O = org + pl * HW + static_cast<size_t>(ty) * W + tx;
 
     // forward transform geometry (common/transform.c:249-330): sizes
     // above 16 with `fast` box-sum the residual to 16x16, size 64
     // otherwise to 32x32; only the first qs rows of the matrix are used
+    const int lg = __ffs(s) - 1;               // s is a power of two
     int shift1 = lg, shift2 = lg + 5, fl = 0;  // fl: log2 of the box
     if (s > 16 && fast) {
       shift1 += 1 + (s == 64);
@@ -218,170 +342,273 @@ enc_intra_scan_kernel(int* __restrict__ planes, const int* __restrict__ org,
     }
     const int nl = lg - fl, n = 1 << nl;       // transform length
     const int ql = min(lg, 4), qs = 1 << ql, Nc = qs * qs;
-    const int stf = 32 >> nl;                  // row step in M, forward
-    __syncthreads();
+    const signed char* Mf = Mn + mat_off(nl);  // the n-point matrix
+    const int rf = mat_row(nl);
 
-    // (4) residual against the original, box-summed
-    for (int o = k; o < n * n; o += NT) {
-      const int r = o >> nl, cc = o & (n - 1);
-      int sum = 0;
-      for (int dy = 0; dy < (1 << fl); ++dy)
-        for (int dx = 0; dx < (1 << fl); ++dx) {
-          const int y = (r << fl) + dy, x = (cc << fl) + dx;
-          sum += O[static_cast<size_t>(ty + y) * W + tx + x]
-                 - pred[(y << lg) + x];
+    // (0) the original, box-summed to n x n (at most 16 * 255 a sum): it
+    // does not wait for the neighbours, so its loads are issued before
+    // the context is
+    by_box(fl, [&](auto FL) {
+      constexpr int B = 1 << decltype(FL)::value;
+#pragma unroll 4
+      for (int o = lane; o < n * n; o += 32) {
+        const int r = o >> nl, cc = o & (n - 1);
+        const int* src = O + static_cast<size_t>(r * B) * W + cc * B;
+        int sum = 0;
+#pragma unroll
+        for (int dy = 0; dy < B; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < B; ++dx)
+            sum += __ldg(src + static_cast<size_t>(dy) * W + dx);
+        u.inb[r * TS + cc] = static_cast<short>(sum);
+      }
+    });
+
+    // (1), (2) context samples, filtered context, top-left, DC value
+    const ScanSamples at{in + pl * HW, P, owner, H, W, (W + 3) >> 2, t};
+    load_context_warp(u.c, at, lane, ty, tx, s, mode, toplen, leftlen, cbx);
+
+    // (3) residual: the prediction's box sums taken off the original's
+    by_mode(mode, [&](auto MD) {
+      by_box(fl, [&](auto FL) {
+        constexpr int md = decltype(MD)::value, B = 1 << decltype(FL)::value;
+#pragma unroll 4
+        for (int o = lane; o < n * n; o += 32) {
+          const int r = o >> nl, cc = o & (n - 1);
+          int sum = 0;
+#pragma unroll
+          for (int dy = 0; dy < B; ++dy)
+#pragma unroll
+            for (int dx = 0; dx < B; ++dx)
+              sum += predict(u.c, s, md, r * B + dy, cc * B + dx);
+          u.inb[r * TS + cc] = static_cast<short>(u.inb[r * TS + cc] - sum);
         }
-      inb[r * TS + cc] = sum;
-    }
-    __syncthreads();
+      });
+    });
+    __syncwarp();
 
-    // (5) tmp[i][j] = wrap16((sum_k M[i][k] in[j][k] + add1) >> shift1)
-    for (int o = k; o < qs * n; o += NT) {
-      const int i = o >> nl, j = o & (n - 1);
-      const int* mr = M + i * stf * TS;
-      const int* xr = inb + j * TS;
-      int acc = 0;
-      for (int kk = 0; kk < n; ++kk) acc += mr[kk] * xr[kk];
-      tmp[i * TS + j] = wrap16((acc + (1 << (shift1 - 1))) >> shift1);
-    }
-    __syncthreads();
-
-    // (6) coeff[i][j] = wrap16((sum_k M[i][k] tmp[j][k] + add2) >> shift2),
-    // stored at its scan position
+    // (4) tmp[i][j] = wrap16((sum_k M[i][k] in[j][k] + add1) >> shift1)
+    // a lane takes outputs o and o + 32: rows i and i + 32 / n, column j
     const unsigned char* zz = zzs + (qs == 4 ? 0 : (qs == 8 ? 16 : 80));
-    if (k < Nc) {
-      const int i = k >> ql, j = k & (qs - 1);
-      const int* mr = M + i * stf * TS;
-      const int* xr = tmp + j * TS;
-      int acc = 0;
-      for (int kk = 0; kk < n; ++kk) acc += mr[kk] * xr[kk];
-      sco[zz[k]] = wrap16((acc + (1 << (shift2 - 1))) >> shift2);
-    }
-    if (k == 0) s_last = -1;
-    __syncthreads();
+    by_len(nl, [&](auto NL) {
+      constexpr int N = 1 << decltype(NL)::value;
+      for (int o = lane; o < qs * N; o += 64) {
+        const int i = o / N, j = o & (N - 1), i1 = (o + 32) / N;
+        const bool two = o + 32 < qs * N;
+        int a0, a1;
+        dot2<N>(u.inb + j * TS, Mf + i * rf, u.inb + j * TS, Mf + i1 * rf,
+                two, a0, a1);
+        u.tmp[i * TS + j] =
+            static_cast<short>(wrap16((a0 + (1 << (shift1 - 1))) >> shift1));
+        if (two)
+          u.tmp[i1 * TS + j] = static_cast<short>(
+              wrap16((a1 + (1 << (shift1 - 1))) >> shift1));
+      }
+      __syncwarp();
 
-    // (7) quantize (enc/encode_block.c:75-133), a thread per position
+      // (5) coeff[i][j] = wrap16((sum_k M[i][k] tmp[j][k] + add2) >>
+      // shift2), stored at its scan position
+      for (int o = lane; o < Nc; o += 64) {
+        const int i = o >> ql, j = o & (qs - 1), i1 = (o + 32) >> ql;
+        const bool two = o + 32 < Nc;
+        int a0, a1;
+        dot2<N>(u.tmp + j * TS, Mf + i * rf, u.tmp + j * TS, Mf + i1 * rf,
+                two, a0, a1);
+        u.sco[zz[o]] =
+            static_cast<short>(wrap16((a0 + (1 << (shift2 - 1))) >> shift2));
+        if (two)
+          u.sco[zz[o + 32]] = static_cast<short>(
+              wrap16((a1 + (1 << (shift2 - 1))) >> shift2));
+      }
+    });
+    __syncwarp();
+
+    // (6) quantize (enc/encode_block.c:75-133), a lane per position
     const int sh2 = 21 - lg + qp6;
-    int v = 0, absc = 0;
-    if (k < Nc) {
-      v = sco[k];
-      absc = scale * abs(v);
-      if ((abs(absc + off_last_b * (1 << (sh2 - 8))) >> sh2) != 0)
-        atomicMax(&s_last, k);
+    int last = -1;
+    for (int k = lane; k < Nc; k += 32) {
+      const int absc = scale * abs(static_cast<int>(u.sco[k]));
+      if ((abs(absc + off_last_b * (1 << (sh2 - 8))) >> sh2) != 0) last = k;
     }
-    __syncthreads();
-    const int last = s_last;
-    int q0 = 0;
-    if (k < Nc) {
+    last = __reduce_max_sync(ALL, last);
+    bool nz = false;
+    for (int k = lane; k < Nc; k += 32) {
+      const int v = u.sco[k], absc = scale * abs(v);
       const int off =
           ((absc >> sh2) == 0 ? off0_b : off1_b) * (1 << (sh2 - 8));
       const int level = (absc + off) >> sh2;
-      q0 = k <= last ? (v < 0 ? -level : level) : 0;
-      q[k] = q0;
+      const int q0 = k <= last ? (v < 0 ? -level : level) : 0;
+      u.q[k] = static_cast<short>(q0);
+      nz |= q0 != 0;
     }
-    const int cbp = __syncthreads_or(q0 != 0);
+    const bool cbp = __any_sync(ALL, nz);
 
-    // (8) zero-run pass (enc/encode_block.c:134-168), warp 0. Position p
-    // fires when its level is above 1 after two zero levels, unless the
-    // level 3 back is above 1, or the level 4 back is above 1 and the one
-    // 3 back nonzero; positions 0..2 never fire. The smallest raw
-    // coefficient of p, p-1, p-2 decides which level becomes +-1.
-    if (cbp && k < 32) {
+    // (7) zero-run pass (enc/encode_block.c:134-168). Position p fires
+    // when its level is above 1 after two zero levels, unless the level 3
+    // back is above 1, or the level 4 back is above 1 and the one 3 back
+    // nonzero; positions 0..2 never fire. The smallest raw coefficient of
+    // p, p-1, p-2 decides which level becomes +-1.
+    if (cbp) {
       const int thr = (dq73 << qp6) >> (4 + lg);
       int cursor = 3;
       while (cursor <= last) {
-        const int p = cursor + k;
+        const int p = cursor + lane;
         bool act = false;
         if (p <= last)
-          act = abs(q[p]) > 1 && q[p - 1] == 0 && q[p - 2] == 0
-                && !(abs(q[p - 3]) > 1)
-                && !(p > 3 && abs(q[p - 4]) > 1 && q[p - 3] != 0);
-        const unsigned m = __ballot_sync(0xffffffffu, act);
+          act = abs(u.q[p]) > 1 && u.q[p - 1] == 0 && u.q[p - 2] == 0
+                && !(abs(u.q[p - 3]) > 1)
+                && !(p > 3 && abs(u.q[p - 4]) > 1 && u.q[p - 3] != 0);
+        const unsigned m = __ballot_sync(ALL, act);
         if (m == 0) {
           cursor += 32;
           continue;
         }
         const int l = __ffs(m) - 1;
-        if (k == l) {
-          const int c0 = abs(sco[p]), c1 = abs(sco[p - 1]);
-          const int c2 = abs(sco[p - 2]);
+        if (lane == l) {
+          const int c0 = abs(u.sco[p]), c1 = abs(u.sco[p - 1]);
+          const int c2 = abs(u.sco[p - 2]);
           const int tgt = c0 + max(c1, c2) < thr ? p
                                                  : (c1 > c2 ? p - 1 : p - 2);
-          q[tgt] = sco[tgt] < 0 ? -1 : 1;
+          u.q[tgt] = u.sco[tgt] < 0 ? -1 : 1;
         }
         __syncwarp();
         cursor += l + 1;
       }
     }
-    __syncthreads();
+    __syncwarp();
 
-    // (9) the TU's bank, and the dequantized levels in block layout
-    // (common/common_block.c:132-146); both zero outside qs x qs
-    {
+    // (8) the TU's bank, and the dequantized levels in block layout
+    // (common/common_block.c:132-146), transposed, over the scan vector;
+    // both zero outside qs x qs
+    const int rsh = lg - 1;
+    for (int k = lane; k < 256; k += 32) {
       const int i = k >> 4, j = k & 15;
-      const int lvl = (i < qs && j < qs) ? q[zz[(i << ql) + j]] : 0;
+      const int lvl = (i < qs && j < qs) ? u.q[zz[(i << ql) + j]] : 0;
       q16[(static_cast<size_t>(t) * C + pl) * 256 + k] =
           static_cast<short>(lvl);
-      const int rsh = lg - 1;
-      rc[k] = sat16((lvl * fac + (1 << (rsh - 1))) >> rsh);
+      u.sco[j * TR + i] = static_cast<short>(
+          sat16((lvl * fac + (1 << (rsh - 1))) >> rsh));
     }
 
-    // (10) inverse transform (common/transform.c:432-486); a 64x64 TU
+    // (9) inverse transform (common/transform.c:432-486); a 64x64 TU
     // inverts its low 32x32 and repeats every sample 2x2. All-zero levels
     // give an all-zero residual, so the transform is skipped then.
     const int ml = min(lg, 5), m = 1 << ml;
     if (cbp) {
-      const int sti = 32 >> ml;                // row step in M, inverse
-      __syncthreads();
-      // tmp[i][j] = sat16((sum_k M[k][i] rc[k][j] + 64) >> 7)
-      for (int o = k; o < m * qs; o += NT) {
-        const int i = o >> ql, j = o & (qs - 1);
-        int acc = 0;
-        for (int kk = 0; kk < qs; ++kk)
-          acc += M[kk * sti * TS + i] * rc[(kk << 4) + j];
-        tmp[i * TS + j] = sat16((acc + 64) >> 7);
-      }
-      __syncthreads();
-      // out[i][j] = sat16((sum_k tmp[i][k] M[k][j] + 2048) >> 12)
-      for (int o = k; o < m * m; o += NT) {
-        const int i = o >> ml, j = o & (m - 1);
-        int acc = 0;
-        for (int kk = 0; kk < qs; ++kk)
-          acc += tmp[i * TS + kk] * M[kk * sti * TS + j];
-        inb[i * TS + j] = sat16((acc + 2048) >> 12);
-      }
-      __syncthreads();
+      const signed char* MT = MnT + mat_off(ml);   // the m-point matrix,
+      const int rt = mat_row(ml);                  // transposed
+      __syncwarp();
+      // tmp[i][j] = sat16((sum_k M[k][i] rc[k][j] + 64) >> 7), k < qs
+      by_len(ql, [&](auto QL) {
+        constexpr int Q = 1 << decltype(QL)::value;
+        for (int o = lane; o < m * Q; o += 64) {
+          const int i = o / Q, j = o & (Q - 1), i1 = (o + 32) / Q;
+          const bool two = o + 32 < m * Q;
+          int a0, a1;
+          dot2<Q>(u.sco + j * TR, MT + i * rt, u.sco + j * TR, MT + i1 * rt,
+                  two, a0, a1);
+          u.tmp[i * TR + j] = static_cast<short>(sat16((a0 + 64) >> 7));
+          if (two)
+            u.tmp[i1 * TR + j] = static_cast<short>(sat16((a1 + 64) >> 7));
+        }
+        __syncwarp();
+        // out[i][j] = sat16((sum_k tmp[i][k] M[k][j] + 2048) >> 12)
+        for (int o = lane; o < m * m; o += 64) {
+          const int i = o >> ml, j = o & (m - 1), i1 = (o + 32) >> ml;
+          const bool two = o + 32 < m * m;
+          int a0, a1;
+          dot2<Q>(u.tmp + i * TR, MT + j * rt, u.tmp + i1 * TR, MT + j * rt,
+                  two, a0, a1);
+          u.inb[i * TS + j] = static_cast<short>(sat16((a0 + 2048) >> 12));
+          if (two)
+            u.inb[i1 * TS + j] = static_cast<short>(sat16((a1 + 2048) >> 12));
+        }
+      });
+      __syncwarp();
     }
 
-    // (11) reconstruct, clip, store
+    // (10) reconstruct, clip, store: each pixel, once written, releases
+    // the units that read it. Four pixels a lane are computed before any
+    // is stored (a store is a compiler barrier for shared-memory loads).
     const int e = lg - ml;                     // 1 for a 64x64 TU
-    for (int p = k; p < s * s; p += NT) {
-      const int i = p >> lg, j = p & (s - 1);
-      const int r = cbp ? inb[(i >> e) * TS + (j >> e)] : 0;
-      P[static_cast<size_t>(ty + i) * W + tx + j] = clip255(pred[p] + r);
-    }
-    // (12) stores visible before the next TU reads its context
-    __syncthreads();
+    by_mode(mode, [&](auto MD) {
+      constexpr int md = decltype(MD)::value;
+      for (int p0 = lane; p0 < s * s; p0 += 128) {
+        int v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int p = p0 + 32 * k, i = p >> lg, j = p & (s - 1);
+          const int r =
+              cbp && p < s * s ? u.inb[(i >> e) * TS + (j >> e)] : 0;
+          v[k] = p < s * s ? clip255(predict(u.c, s, md, i, j) + r) : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int p = p0 + 32 * k;
+          if (p < s * s)
+            st_pixel(P + static_cast<size_t>(ty + (p >> lg)) * W + tx
+                         + (p & (s - 1)),
+                     v[k]);
+        }
+      }
+    });
+    __syncwarp();                // the unit's buffers may be reused
+    qt = __shfl_sync(ALL, next, 0);
   }
+}
+
+// The kernel's shared memory is above the 48 KB a launch gets without
+// asking: raised once per device, by the first launch (before any
+// CUDA-graph capture of it).
+int allow_smem() {
+  static bool done[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(enc_intra_scan_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    done[dev] = true;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// planes/org: [C, H, W] int32 (planes updated in place); recs: [nrec, 7]
-// int32 TU records in coding order, every TU inside the plane; q16:
-// [nrec, C, 16, 16] int16, written whole. scale = gquant[qp % 6], qp6 =
-// qp / 6, fac = gdequant[qp % 6] << qp6, dq73 = 73 * gdequant[qp % 6].
-// Launches on `stream`; returns cudaGetLastError().
-extern "C" int thor_enc_intra_scan(void* planes, const void* org, int C,
-                                   int H, int W, const void* recs, int nrec,
+// planes/org: [C, H, W] int32, read only; out: [C, H, W] int32, a copy of
+// planes that the scan updates in place; recs: [nrec, 7] int32 TU records
+// in coding order, every TU inside the plane, ty, tx and size multiples of
+// 4, no two TUs overlapping; scratch: int32, uninitialised, 1 + ceil(H/4)
+// ceil(W/4) elements (ops/enc_intra.py: scan_scratch); q16: [nrec, C, 16,
+// 16] int16, written whole. scale = gquant[qp % 6], qp6 = qp / 6, fac =
+// gdequant[qp % 6] << qp6, dq73 = 73 * gdequant[qp % 6]. Launches its three
+// kernels on `stream`; returns cudaGetLastError().
+extern "C" int thor_enc_intra_scan(const void* planes, void* out,
+                                   const void* org, int C, int H, int W,
+                                   const void* recs, int nrec, void* scratch,
                                    void* q16, int scale, int qp6, int fac,
                                    int dq73, int fast, int intra,
                                    void* stream) {
   if (nrec <= 0) return 0;
-  enc_intra_scan_kernel<<<C, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(planes), static_cast<const int*>(org), H, W,
-      static_cast<const int*>(recs), nrec, static_cast<short*>(q16), scale,
-      qp6, fac, dq73, fast, intra);
+  int err = allow_smem();
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* ticket = static_cast<int*>(scratch);
+  int* owner = ticket + 1;
+  const int* rc = static_cast<const int*>(recs);
+  scan_prologue(rc, nrec, ticket, owner, static_cast<int*>(out), C, H, W, s);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const int resident = sm_count() * BLOCKS_PER_SM;
+  const int wanted = (nrec * C + WARPS - 1) / WARPS;
+  const int grid = wanted < resident ? wanted : resident;
+  enc_intra_scan_kernel<<<grid, NT, SMEM, s>>>(
+      static_cast<const int*>(planes), static_cast<int*>(out),
+      static_cast<const int*>(org), C, H, W, rc, nrec, owner, ticket,
+      static_cast<short*>(q16), scale, qp6, fac, dq73, fast, intra);
   return static_cast<int>(cudaGetLastError());
 }
 

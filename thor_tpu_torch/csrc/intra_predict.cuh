@@ -14,10 +14,6 @@
 
 namespace thor {
 
-__device__ __forceinline__ int ld(const int* P, int H, int W, int y, int x) {
-  return (y >= 0 && y < H && x >= 0 && x < W) ? P[y * W + x] : 0;
-}
-
 __device__ __forceinline__ int c127(int v) {
   return v < 0 ? 0 : (v > 127 ? 127 : v);
 }
@@ -26,33 +22,34 @@ __device__ __forceinline__ int clip255(int v) {
   return v < 0 ? 0 : (v > 255 ? 255 : v);
 }
 
-struct Ctx {
-  int top[128], left[128];
-  int topF[128], leftF[128];     // 121 filter, replication at s
-  int topF2[128], leftF2[128];   // 121 filter, replication at 2s
-  int topP[64], leftP[64];       // planar 5-tap filter
-  int tl, dc;                    // top-left sample, DC value
+// The context of one TU. Every value fits in 16 bits (samples and
+// filtered samples 0..255, planar sums up to 8 * 255): the decoder's scan
+// keeps it in 32-bit words (Ctx), the encoder's, which holds more per warp,
+// in 16-bit ones (Ctx16).
+template <class V>
+struct CtxOf {
+  V top[128], left[128];
+  V topF[128], leftF[128];       // 121 filter, replication at s
+  V topF2[128], leftF2[128];     // 121 filter, replication at 2s
+  V topP[64], leftP[64];         // planar 5-tap filter
+  V tl, dc;                      // top-left sample, DC value
 };
+using Ctx = CtxOf<int>;
+using Ctx16 = CtxOf<short>;
 
 // Second half of a TU's context: from the complete top / left samples, the
-// filtered arrays the modes read and the DC value. A group of `nthr`
-// threads calls it together, `tid` the thread's place in the group, with
-// the samples visible to all of them: a whole block (WARP false; threads
-// 0..31 must be one warp) or one warp (WARP true, nthr 32). mode < 0
-// builds everything (a caller that tries several modes on one context);
-// mode >= 0 only what predict() reads for that mode, and no entry beyond
-// 2s - 1, the highest any mode reads. It ends in the group's barrier,
-// after which the context is complete for every thread.
-template <bool WARP>
-__device__ __forceinline__ void filter_context(Ctx& c, int tid, int nthr,
-                                               int ty, int tx, int s,
-                                               int mode) {
-  const bool all = mode < 0;
-  const bool f1 = all || mode == 4 || mode == 7 || mode == 8;
-  const bool f2t = all || mode == 5 || mode == 6, f2l = all || mode == 9;
-  const bool planar = all || mode == 1;
-  const int kmax = all ? 128 : min(128, 2 * s);
-  for (int k = tid; k < kmax; k += nthr) {
+// filtered arrays that predict() reads for `mode` and the DC value, no
+// entry beyond 2s - 1, the highest any mode reads. One warp calls it, with
+// the samples visible to all its lanes; it ends in a warp barrier, after
+// which the context is complete for every lane.
+template <class Cx>
+__device__ __forceinline__ void filter_context(Cx& c, int lane, int ty,
+                                               int tx, int s, int mode) {
+  const bool f1 = mode == 4 || mode == 7 || mode == 8;
+  const bool f2t = mode == 5 || mode == 6, f2l = mode == 9;
+  const bool planar = mode == 1;
+  const int kmax = min(128, 2 * s);
+  for (int k = lane; k < kmax; k += 32) {
     const int km = max(k - 1, 0);
     const int n1 = min(k + 1, s - 1), n2 = min(k + 1, 2 * s - 1);
     if (f1) {
@@ -70,44 +67,17 @@ __device__ __forceinline__ void filter_context(Ctx& c, int tid, int nthr,
                    + 2 * c.left[d] + c.left[e];
     }
   }
-  if (tid < 32 && (all || mode == 0 || mode >= 10)) {
-    const int* lv = tx != 0 ? c.left : c.top;
-    const int* tv = ty != 0 ? c.top : c.left;
+  if (mode == 0 || mode >= 10) {
+    const auto* lv = tx != 0 ? c.left : c.top;
+    const auto* tv = ty != 0 ? c.top : c.left;
     int sum = 0;
-    for (int q = tid; q < s; q += 32) sum += lv[q] + tv[q];
+    for (int q = lane; q < s; q += 32) sum += lv[q] + tv[q];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       sum += __shfl_down_sync(0xffffffffu, sum, off);
-    if (tid == 0) c.dc = (sum + s) / (2 * s);
+    if (lane == 0) c.dc = (sum + s) / (2 * s);
   }
-  if (WARP) {
-    __syncwarp();
-  } else {
-    __syncthreads();
-  }
-}
-
-// Builds the context of one TU in shared memory from the plane P, for a
-// scan that walks all TUs of the plane in one thread block. Every thread
-// of the block calls it (blockDim.x >= 128); it holds two barriers and
-// returns with the context complete and visible to all threads.
-__device__ __forceinline__ void load_context(Ctx& c, const int* P, int H,
-                                             int W, int ty, int tx, int s,
-                                             int toplen, int leftlen,
-                                             int cbx) {
-  const int k = threadIdx.x;
-  // (1) context samples
-  if (k < 128) {
-    c.top[k] = ty == 0 ? 128 : ld(P, H, W, ty - 1, tx + min(k, toplen - 1));
-    c.left[k] = tx == 0 ? 128 : ld(P, H, W, ty + min(k, leftlen - 1), tx - 1);
-  }
-  __syncthreads();
-  // (2) top-left sample, filtered context, DC value
-  if (k == 0) {
-    c.tl = ty == 0 ? c.left[0]
-                   : (cbx ? ld(P, H, W, ty - 1, tx - 1) : c.top[0]);
-  }
-  filter_context<false>(c, k, blockDim.x, ty, tx, s, -1);
+  __syncwarp();
 }
 
 // A sample that an earlier TU of the same launch has yet to write reads
@@ -130,8 +100,8 @@ constexpr int PENDING = static_cast<int>(0x80000000u);
 // under the cbx rule); the replication beyond them is done in shared
 // memory, as far as the modes read (2s entries). All 32 lanes call it; it
 // returns with the context complete and visible to the warp.
-template <class Samples>
-__device__ __forceinline__ void load_context_warp(Ctx& c, const Samples& at,
+template <class Samples, class Cx>
+__device__ __forceinline__ void load_context_warp(Cx& c, const Samples& at,
                                                   int lane, int ty, int tx,
                                                   int s, int mode, int toplen,
                                                   int leftlen, int cbx) {
@@ -191,11 +161,12 @@ __device__ __forceinline__ void load_context_warp(Ctx& c, const Samples& at,
   __syncwarp();
   // (2) top-left sample, filtered context, DC value
   if (lane == 0 && !corner) c.tl = ty == 0 ? c.left[0] : c.top[0];
-  filter_context<true>(c, lane, 32, ty, tx, s, mode);
+  filter_context(c, lane, ty, tx, s, mode);
 }
 
 // Prediction of pixel (i, j) of an s x s TU from a complete context.
-__device__ __forceinline__ int predict(const Ctx& c, int s, int mode, int i,
+template <class Cx>
+__device__ __forceinline__ int predict(const Cx& c, int s, int mode, int i,
                                        int j) {
   const int tl = c.tl;
   switch (mode) {

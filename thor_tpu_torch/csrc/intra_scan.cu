@@ -19,13 +19,15 @@
 // frame the intra TUs are scattered and mostly independent. So the TUs run
 // on all SMs, each as soon as what it reads is there:
 //   - three small kernels prepare the schedule on the card (the host
-//     hands over the same records as before): one clears the ticket and
-//     the owner map; one cuts the TUs into units of work, a (TU, plane)
-//     pair, or one of its slices of 512 pixels where the TU is larger, by
-//     a prefix sum over the TUs' slice counts, and writes the unit table in
-//     decode order; one writes, for every 4x4 cell of the plane, the index
-//     of the TU that covers it (-1: none), all TUs at once, and marks every
-//     pixel of every TU in the output planes as PENDING;
+//     hands over the same records as before; the first and the last are
+//     shared with the encoder's scan, scan_common.cuh): one clears the
+//     ticket and the owner map; one cuts the TUs into units of work, a
+//     (TU, plane) pair, or one of its slices of 512 pixels where the TU is
+//     larger, by a prefix sum over the TUs' slice counts, and writes the
+//     unit table in decode order; one writes, for every 4x4 cell of the
+//     plane, the index of the TU that covers it (-1: none), all TUs at
+//     once, and marks every pixel of every TU in the output planes as
+//     PENDING;
 //   - the scan's warps take units in that order from an atomic ticket. A
 //     lane fetches the context samples of one 4x4 cell: it looks up the
 //     cell's owner. An owner earlier in decode order writes those samples
@@ -67,12 +69,12 @@
 // sees it at L2, the context and the tile.
 
 #include "intra_predict.cuh"
+#include "scan_common.cuh"
 
 namespace {
 
 using namespace thor;
 
-constexpr int NF = 7;       // ty, tx, size, mode, toplen, leftlen, cbx
 constexpr int WARPS = 8;    // per block, each with its own context
 constexpr int NT = 32 * WARPS;
 constexpr int BLOCKS_PER_SM = 7;    // 7 x 8 contexts of 3.6 KB fill an SM
@@ -82,27 +84,6 @@ constexpr int PREP_THREADS = 1024;
 // units of work one plane of an s x s TU is cut into
 __host__ __device__ __forceinline__ int slices(int s) {
   return s * s > SLICE ? s * s / SLICE : 1;
-}
-
-// Pixels of the output planes are read by other SMs while the scan runs:
-// both sides go to L2 with strong accesses.
-__device__ __forceinline__ void st_pixel(int* p, int v) {
-  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ int ld_pixel(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-// the ticket and the owner map as the other kernels expect them
-__global__ void intra_scan_init_kernel(int* ticket, int* owner, int ncell) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i == 0) *ticket = 0;
-  if (i < ncell) owner[i] = -1;
 }
 
 // One block. table[q] = the unit with ticket q as (t * C + plane) << 5 |
@@ -117,7 +98,7 @@ intra_scan_units_kernel(const int* __restrict__ recs, int nrec, int C,
   const int per = (nrec + PREP_THREADS - 1) / PREP_THREADS;
   const int lo = min(k * per, nrec), hi = min(lo + per, nrec);
   int sum = 0;
-  for (int t = lo; t < hi; ++t) sum += slices(recs[t * NF + 2]);
+  for (int t = lo; t < hi; ++t) sum += slices(recs[t * SCAN_NF + 2]);
   part[k] = sum;
   __syncthreads();
   for (int off = 1; off < PREP_THREADS; off <<= 1) {   // inclusive scan
@@ -129,7 +110,7 @@ intra_scan_units_kernel(const int* __restrict__ recs, int nrec, int C,
   int q = (part[k] - sum) * C;           // first unit of this thread's TUs
   if (k == PREP_THREADS - 1) *nunits = min(part[k] * C, cap);
   for (int t = lo; t < hi; ++t) {
-    const int n = slices(recs[t * NF + 2]);
+    const int n = slices(recs[t * SCAN_NF + 2]);
     for (int plane = 0; plane < C; ++plane) {
       for (int j = 0; j < n; ++j, ++q) {
         if (q < cap) table[q] = ((t * C + plane) << 5) | j;
@@ -137,46 +118,6 @@ intra_scan_units_kernel(const int* __restrict__ recs, int nrec, int C,
     }
   }
 }
-
-// owner[cell] = index of the TU that covers the 4x4 cell, and the TU's
-// pixels PENDING in all C output planes; one block per TU
-__global__ void intra_scan_owner_kernel(const int* __restrict__ recs,
-                                        int* __restrict__ owner, int cw,
-                                        int* __restrict__ out, int C, int H,
-                                        int W) {
-  const int t = blockIdx.x;
-  const int* rc = recs + static_cast<size_t>(t) * NF;
-  const int ty = rc[0], tx = rc[1], s = rc[2], n = s >> 2;
-  for (int p = threadIdx.x; p < n * n; p += blockDim.x) {
-    owner[((ty >> 2) + p / n) * cw + (tx >> 2) + p % n] = t;
-  }
-  const size_t HW = static_cast<size_t>(H) * W;
-  for (int p = threadIdx.x; p < s * s * C; p += blockDim.x) {
-    const int plane = p / (s * s), r = p - plane * s * s;
-    out[plane * HW + static_cast<size_t>(ty + r / s) * W + tx + r % s] =
-        PENDING;
-  }
-}
-
-// The samples one unit of work reads: see the design note.
-struct ScanSamples {
-  const int* in;        // this plane as it was before the scan
-  const int* out;       // this plane, written by the scan's units
-  const int* owner;     // [ceil(H/4), cw]
-  int H, W, cw, t;
-  __device__ __forceinline__ bool inside(int y, int x) const {
-    return y >= 0 && y < H && x >= 0 && x < W;
-  }
-  __device__ __forceinline__ int writer(int y, int x) const {
-    if (!inside(y, x)) return -1;
-    const int o = __ldg(owner + (y >> 2) * cw + (x >> 2));
-    return o < t ? o : -1;
-  }
-  __device__ __forceinline__ int peek(bool w, int y, int x) const {
-    if (!inside(y, x)) return 0;
-    return w ? ld_pixel(out + y * W + x) : __ldg(in + y * W + x);
-  }
-};
 
 __global__ void __launch_bounds__(NT, BLOCKS_PER_SM)
 intra_scan_kernel(const int* __restrict__ in, int* out,
@@ -200,7 +141,7 @@ intra_scan_kernel(const int* __restrict__ in, int* out,
     if (lane == 0) next = atomicAdd(ticket, 1);
     const int e = table[q];
     const int tp = e >> 5, t = tp / C, plane = tp - t * C;
-    const int* rc = recs + static_cast<size_t>(t) * NF;
+    const int* rc = recs + static_cast<size_t>(t) * SCAN_NF;
     const int ty = rc[0], tx = rc[1], s = rc[2], mode = rc[3];
     const int toplen = rc[4], leftlen = rc[5], cbx = rc[6];
     int* P = out + plane * HW;
@@ -246,18 +187,6 @@ intra_scan_kernel(const int* __restrict__ in, int* out,
   }
 }
 
-int sm_count() {
-  static int sms[64];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
-  if (sms[dev] == 0) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    sms[dev] = n > 0 ? n : 1;
-  }
-  return sms[dev];
-}
-
 }  // namespace
 
 // planes: [C, H, W] int32, read only; out: [C, H, W] int32, a copy of
@@ -276,19 +205,14 @@ extern "C" int thor_intra_scan(const void* planes, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int by_size = 64 * 64 / SLICE * nrec, by_area = nrec + H * W / SLICE;
   const int cap = C * (by_size < by_area ? by_size : by_area);
-  const int cw = (W + 3) >> 2, ncell = ((H + 3) >> 2) * cw;
   int* ticket = static_cast<int*>(scratch);
   int* nunits = ticket + 1;
   int* table = ticket + 2;
   int* owner = table + cap;
   const int* rc = static_cast<const int*>(recs);
-  intra_scan_init_kernel<<<(ncell + 255) / 256, 256, 0, s>>>(ticket, owner,
-                                                             ncell);
+  scan_prologue(rc, nrec, ticket, owner, static_cast<int*>(out), C, H, W, s);
   intra_scan_units_kernel<<<1, PREP_THREADS, 0, s>>>(rc, nrec, C, nunits,
                                                      table, cap);
-  intra_scan_owner_kernel<<<nrec, 128, 0, s>>>(rc, owner, cw,
-                                               static_cast<int*>(out), C, H,
-                                               W);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int resident = sm_count() * BLOCKS_PER_SM;

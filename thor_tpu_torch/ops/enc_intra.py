@@ -6,7 +6,10 @@ and of the XLA scan enc/device_intra._encode_scan_fn. The scan is the
 encoder's final pass over the transform units (TUs) the search chose, in
 coding order: predict from already reconstructed neighbours, transform
 and quantize the residual against the original, reconstruct exactly as
-the decoder will, and put out the quantized coefficients. Records are
+the decoder will, and put out the quantized coefficients. The plain
+version walks coding order; the kernel runs a TU as soon as the earlier
+TUs that wrote its context samples are done (ops/intra.intra_levels gives
+the depth of that dependency graph). Records are
 those of the decoder's scan (ops/intra.py: ty, tx, size, mode, toplen,
 leftlen, cbx_nonzero; build_intra_records), one row per TU; there are no
 padding rows, row i of the coefficient output is TU i.
@@ -74,19 +77,31 @@ def _kernel():
         L = _build.cuda_library("enc_intra_scan")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         L.thor_enc_intra_scan.restype = ci
-        L.thor_enc_intra_scan.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp,
-                                          ci, ci, ci, ci, ci, ci, vp]
+        L.thor_enc_intra_scan.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci,
+                                          vp, vp, ci, ci, ci, ci, ci, ci,
+                                          vp]
         L.thor_cuda_error_string.restype = ctypes.c_char_p
         L.thor_cuda_error_string.argtypes = [ci]
         _lib = L
     return _lib
 
 
+def scan_scratch(H: int, W: int, dev):
+    """The kernel's scratch for planes of H x W: the unit ticket and the
+    owner map of the 4x4 cells (one int32 each). The kernel initialises
+    it itself, on the stream."""
+    return torch.empty(1 + ((H + 3) // 4) * ((W + 3) // 4), dtype=I32,
+                       device=dev)
+
+
 def encode_scan(planes, org, recs, qp: int, fast: bool, intra: bool):
     """Encoder intra scan of C planes sharing one TU record set; see
     encode_scan_plain for the arguments and the result. A CPU tensor takes
-    the plain version; a CUDA tensor launches csrc/enc_intra_scan.cu (on a
-    copy of `planes`, which is left as it was)."""
+    the plain version; a CUDA tensor launches csrc/enc_intra_scan.cu
+    (which writes a copy of `planes` and reads `planes`, left as it was,
+    wherever no earlier TU wrote). The records come from
+    ops/intra.build_intra_records: TUs inside the plane, 4-aligned, not
+    overlapping."""
     if planes.device.type == "cpu":
         return encode_scan_plain(planes, org, recs, qp, fast, intra)
     if planes.device.type != "cuda":
@@ -110,9 +125,11 @@ def encode_scan(planes, org, recs, qp: int, fast: bool, intra: bool):
     if n:
         L = _kernel()
         gdq = int(GDEQUANT_TABLE[qp % 6])
+        scratch = scan_scratch(H, W, planes.device)
         err = L.thor_enc_intra_scan(
-            out.data_ptr(), org.data_ptr(), C, H, W, recs.data_ptr(), n,
-            q16.data_ptr(), int(GQUANT_TABLE[qp % 6]), qp // 6,
+            planes.data_ptr(), out.data_ptr(), org.data_ptr(), C, H, W,
+            recs.data_ptr(), n, scratch.data_ptr(), q16.data_ptr(),
+            int(GQUANT_TABLE[qp % 6]), qp // 6,
             gdq << (qp // 6), 73 * gdq, int(bool(fast)), int(bool(intra)),
             torch.cuda.current_stream(planes.device).cuda_stream)
         if err:

@@ -9,7 +9,8 @@ record layout is the port's own, one row per PU piece:
 (y0, x0, h, w) is the output rectangle in plane pixels; per list, `slot`
 indexes the reference stack, `phase` the LUT row, and (iy, ix) is the
 top-left tap of the window in the codec-padded reference. PUs larger than
-TILE x TILE are split into TILE x TILE pieces (one CUDA block each).
+TILE x TILE are split into TILE x TILE pieces (one warp of the kernel
+each).
 """
 
 from __future__ import annotations

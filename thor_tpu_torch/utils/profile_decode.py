@@ -64,8 +64,10 @@ def _group(name: str) -> str:
         return "mc_frame (csrc/mc.cu)"
     if "enc_intra_scan_kernel" in name:
         return "encode_scan (csrc/enc_intra_scan.cu)"
-    if "intra_scan_" in name:      # the scan and its three prologue kernels
+    if "intra_scan_" in name:      # the scan and its unit-table kernel
         return "intra_scan (csrc/intra_scan.cu)"
+    if "scan_init_kernel" in name or "scan_owner_kernel" in name:
+        return "the scans' prologue (csrc/scan_common.cuh)"
     if "Memcpy" in name or "memcpy" in name:
         return "memcpy " + ("HtoD" if "HtoD" in name else
                             "DtoH" if "DtoH" in name else "other")

@@ -3,11 +3,15 @@
 
     python3 tools/ab_kernel.py interp_me other_interp_me.cu
     python3 tools/ab_kernel.py intra_scan other_intra_scan.cu
+    python3 tools/ab_kernel.py enc_intra_scan other_enc_intra_scan.cu
+    python3 tools/ab_kernel.py mc other_mc.cu
 
 Builds thor_tpu_torch/csrc/<kernel>.cu ("tree") and the given source
 ("other", for instance an earlier commit's file written out with
-`git show REV:thor_tpu_torch/csrc/<kernel>.cu`; it may include the
-tree's headers from csrc/). Runs both on the same inputs,
+`git show REV:thor_tpu_torch/csrc/<kernel>.cu`; it includes the headers
+beside it first, then the tree's from csrc/, so an older source builds
+against its own `git show` copies of the headers it names). Runs both on
+the same inputs,
 in the order other, tree, tree, other, and prints the device ms of each
 run (CUDA events around a CUDA-graph replay of 5 calls) and whether the
 two outputs are equal to each other and to the main path's.
@@ -23,6 +27,17 @@ intra_scan: the Y and the U/V launch of the I frame and of the first P
 frame of testdata/LDB_medium_complexity_1080.bit. An "other" source
 without a `scratch` argument is called with the single-block entry's
 signature (planes updated in place, no input copy, no scratch).
+
+enc_intra_scan: the Y and the U/V launch of the first frame of the 1080p
+all-intra encode (chip_smoke.ENC_1080: its search on the card, its
+records); the planes and the coefficient banks are compared. An "other"
+source without a `scratch` argument is called with the single-block
+entry's signature (planes updated in place).
+
+mc: the Y and the U/V launch of the first P frame of
+testdata/LDB_medium_complexity_1080.bit; both sources have the entry
+thor_mc_frame of the tree's signature, and the output is cleared before
+every launch of either, as the wrapper does.
 
 Run from the repo's root; needs a CUDA device; imports nothing of JAX.
 """
@@ -40,8 +55,10 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as S                                    # noqa: E402
 from thor_tpu_torch.ops import _build                     # noqa: E402
+from thor_tpu_torch.ops import enc_intra as EI            # noqa: E402
 from thor_tpu_torch.ops import interp as TI               # noqa: E402
 from thor_tpu_torch.ops import intra as IT                # noqa: E402
+from thor_tpu_torch.ops import mc as M                    # noqa: E402
 
 ORDER = ("other", "tree", "tree", "other")
 VP, CI = ctypes.c_void_p, ctypes.c_int
@@ -169,18 +186,112 @@ def ab_intra_scan(libs, dev, other_has_scratch):
     return ok
 
 
+def ab_enc_intra_scan(libs, dev, other_has_scratch):
+    from thor_tpu_torch.codec.constants import GDEQUANT_TABLE, GQUANT_TABLE
+    new_sig = [VP, VP, VP, CI, CI, CI, VP, CI, VP, VP] + [CI] * 6 + [VP]
+    old_sig = [VP, VP, CI, CI, CI, VP, CI, VP] + [CI] * 6 + [VP]
+    for k, L in libs.items():
+        L.thor_enc_intra_scan.restype = CI
+        L.thor_enc_intra_scan.argtypes = new_sig \
+            if k == "tree" or other_has_scratch else old_sig
+    y, u, v, (recs_y, qpY), (recs_c, qpC) = S.enc_frame0(dev)
+    ok = True
+    for label, org, recs, qp in (("Y", y[None], recs_y, qpY),
+                                 ("UV", torch.stack([u, v]), recs_c, qpC)):
+        C, h, w = org.shape
+        org = org.contiguous()
+        recs = torch.from_numpy(recs).to(dev)
+        n = len(recs)
+        planes = torch.zeros_like(org)
+        scratch = EI.scan_scratch(h, w, dev)
+        outs = {k: torch.empty_like(planes) for k in libs}
+        banks = {k: torch.empty((n, C, 16, 16), dtype=torch.int16, device=dev)
+                 for k in libs}
+        gdq = int(GDEQUANT_TABLE[qp % 6])
+        quant = (int(GQUANT_TABLE[qp % 6]), qp // 6, gdq << (qp // 6),
+                 73 * gdq, 0, 1)
+
+        def run(k):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            outs[k].copy_(planes)
+            if k == "tree" or other_has_scratch:
+                err = libs[k].thor_enc_intra_scan(
+                    planes.data_ptr(), outs[k].data_ptr(), org.data_ptr(), C,
+                    h, w, recs.data_ptr(), n, scratch.data_ptr(),
+                    banks[k].data_ptr(), *quant, stream)
+            else:
+                err = libs[k].thor_enc_intra_scan(
+                    outs[k].data_ptr(), org.data_ptr(), C, h, w,
+                    recs.data_ptr(), n, banks[k].data_ptr(), *quant, stream)
+            if err:
+                raise RuntimeError(f"{k}: launch failed ({err})")
+
+        res = [(k, S.time_ms(lambda: run(k), warmup=1, iters=5))
+               for k in ORDER]
+        chain, widest = S.chain_stats(recs)
+        main_p, main_q = EI.encode_scan(planes, org, recs, qp, False, True)
+        same_q = torch.equal(banks["other"], banks["tree"]) and \
+            torch.equal(banks["tree"], main_q)
+        ok &= report(f"enc_intra_scan 1080p I frame {label}, {n} TUs, chain "
+                     f"{chain}, widest level {widest}", outs, main_p, res,
+                     f", banks {'equal' if same_q else 'DIFFER'}") and same_q
+    return ok
+
+
+def ab_mc(libs, dev):
+    for L in libs.values():
+        L.thor_mc_frame.restype = CI
+        L.thor_mc_frame.argtypes = [VP, CI, CI, CI, CI, VP, CI, VP, CI, VP,
+                                    CI, CI, VP]
+    seq, luts, _, (_, inp1, refs1) = S.first_frames(dev)
+    H, W = seq.height, seq.width
+    refY = torch.stack([r.y for r in refs1])[None]
+    refUV = torch.stack([torch.stack([r.u for r in refs1]),
+                         torch.stack([r.v for r in refs1])])
+    ok = True
+    for label, refs, recs, lut, h, w in (
+            ("Y", refY, inp1["mc_y"], luts[0], H, W),
+            ("UV", refUV, inp1["mc_c"], luts[1], H // 2, W // 2)):
+        C, R, Hp, Wp = refs.shape
+        T = int(round(lut.shape[1] ** 0.5))
+        outs = {k: torch.empty((C, h, w), dtype=torch.int32, device=dev)
+                for k in libs}
+
+        def run(k):
+            outs[k].zero_()
+            err = libs[k].thor_mc_frame(
+                refs.data_ptr(), C, R, Hp, Wp, recs.data_ptr(), len(recs),
+                lut.data_ptr(), T, outs[k].data_ptr(), h, w,
+                torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"{k}: launch failed ({err})")
+
+        res = [(k, S.time_ms(lambda: run(k))) for k in ORDER]
+        ok &= report(f"mc 1080p P frame {label}, {len(recs)} records", outs,
+                     M.mc_frame(refs, recs, lut, h, w), res)
+    return ok
+
+
+KERNELS = ("interp_me", "intra_scan", "enc_intra_scan", "mc")
+
+
 def main(argv):
-    if len(argv) != 3 or argv[1] not in ("interp_me", "intra_scan"):
+    if len(argv) != 3 or argv[1] not in KERNELS:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("ab_kernel needs a CUDA device")
     other = Path(argv[2])
     libs = load(argv[1], other)
     dev = torch.device("cuda")
+    scratch = "void* scratch" in other.read_text()
     if argv[1] == "interp_me":
         ok = ab_interp_me(libs, dev)
+    elif argv[1] == "intra_scan":
+        ok = ab_intra_scan(libs, dev, scratch)
+    elif argv[1] == "enc_intra_scan":
+        ok = ab_enc_intra_scan(libs, dev, scratch)
     else:
-        ok = ab_intra_scan(libs, dev, "void* scratch" in other.read_text())
+        ok = ab_mc(libs, dev)
     return 0 if ok else 1
 
 
