@@ -11,9 +11,13 @@ Phases (any failure exits nonzero):
      exact equality; times from CUDA events. Block MC and the intra scan at
      the shapes of the 1080p LDB stream (first P frame, I frame) and on
      seeded random tilings. The interpolation kernels (pyramid ME, luma and
-     chroma synthesis) at every level of the 1080p RA16 stream's first
-     interpolated frame and on seeded correlated frames at (ratio, pos)
-     (2,1), (4,3), (16,7). The encoder's intra scan on seeded tilings
+     chroma synthesis, the latter two writing the padded reference planes,
+     U/V on vectors it derives from the luma field) at every level of the
+     1080p RA16 stream's first interpolated frame and on seeded correlated
+     frames at (ratio, pos) (2,1), (4,3), (16,7); the synthesis also on
+     seeded 1080p vectors past the halo; the kernels one interpolate_frames
+     call launches, and those from level 0's maps to the padded planes,
+     counted by torch.profiler. The encoder's intra scan on seeded tilings
      (luma and U+V, fast and exact transforms, intra and inter quantizer
      offsets) and at the TU records of the 1080p encode's first frame,
      with the records' dependency chain, its widest level and the us per
@@ -601,11 +605,6 @@ def check_pyramid(label, r0, r1, ratio, pos, rows, max_err, timed):
     be equal. With `timed`, each kernel is also timed at these inputs and
     its bound computed, and a row is kept."""
     from thor_tpu_torch.ops import interp as TI
-    dev = r0.y.device
-    h, w = r0.y.shape[0] - 2 * TI.PAD_Y, r0.y.shape[1] - 2 * TI.PAD_Y
-    rev, wt0, wt1 = TI.interp_weights(ratio, pos)
-    if rev:
-        r0, r1 = r1, r0
 
     def same(kname, what, got, want, plain_ms):
         err = max(int((g.long() - v.long()).abs().max().item())
@@ -633,19 +632,17 @@ def check_pyramid(label, r0, r1, ratio, pos, rows, max_err, timed):
             f"bound_ms={b_ms:.5f} ({b_by}){note}")
         rows[kname].append((ms, plain_ms, b_ms, b_by, bound))
 
-    levels = TI.num_levels(w, h)
     calls = []
-    m0, m1 = TI.estimate_motion(
-        TI.build_pyramid(r0.y, w, h, levels),
-        TI.build_pyramid(r1.y, w, h, levels), w, h, (wt0, wt1),
-        on_level=lambda *c: calls.append(c))
-    for lvl, a, kw, maps in calls:
+    r0, r1, maps, wts, w, h = TI.level0_motion(
+        r0, r1, ratio, pos, on_level=lambda *c: calls.append(c))
+    dev = r0.y.device
+    for lvl, a, kw, maps_l in calls:
         want, plain_ms = plain_run(TI.me_level_plain, *a, **kw)
         bw, bh = TI.me_grid(kw["w"], kw["h"])
         what = (f"level {lvl} {kw['w']}x{kw['h']} "
                 f"{'guided' if kw['guided'] else 'unguided'}, "
                 f"{bw // 2}x{bh // 2} blocks")
-        same("me_level", what, maps, want, plain_ms)
+        same("me_level", what, maps_l, want, plain_ms)
         if timed:
             stats = torch.zeros(2, dtype=torch.int64, device=dev)
             TI.me_level(*a, stats=stats, **kw)
@@ -657,27 +654,124 @@ def check_pyramid(label, r0, r1, ratio, pos, rows, max_err, timed):
                  f"{bw // 2 + bh - 2} steps, {e16} 16x16 and {e8} 8x8 SADs "
                  f"needed", iters=5)
 
-    ykw = dict(w=w, h=h, cs=TI.BLOCK_STEP // 2, clip_pad=TI.BLOCK_STEP // 4,
-               base=TI.PAD_Y)
-    y = TI.mot_comp(r0.y, r1.y, m0, m1, **ykw)
+    # the two synthesis kernels, each writing its padded reference planes
+    m0, m1 = TI.cell_vectors(maps)
+    ykw = dict(w=w, h=h, base=TI.PAD_Y, pad=TI.PAD_Y)
+    yp = TI.mot_comp(r0.y, r1.y, m0, m1, **ykw)
     want, plain_ms = plain_run(TI.mot_comp_plain, r0.y, r1.y, m0, m1, **ykw)
-    same("mot_comp", f"{w}x{h}", (y,), (want,), plain_ms)
+    what = f"{w}x{h} padded to {yp.shape[1]}x{yp.shape[0]}"
+    same("mot_comp", what, (yp,), (want,), plain_ms)
     if timed:
-        keep("mot_comp", f"{w}x{h}",
+        keep("mot_comp", what,
              lambda: TI.mot_comp(r0.y, r1.y, m0, m1, **ykw), plain_ms,
-             (nbytes(r0.y, r1.y, m0, m1, y), 3 * w * h))
-    c1 = m1 >> 1
-    c0 = TI._scale_val(c1, -wt1, wt0)
-    ckw = dict(w=w // 2, h=h // 2, cs=TI.BLOCK_STEP // 4,
-               clip_pad=TI.BLOCK_STEP // 8, base=TI.PAD_C)
-    ca = (r0.u, r1.u, r0.v, r1.v, c0, c1)
+             (synthesis_bytes("mot_comp", w, h, 2, 2, yp), 3 * yp.numel()))
+    ckw = dict(w=w // 2, h=h // 2, base=TI.PAD_C, pad=TI.PAD_C)
+    ca = (r0.u, r1.u, r0.v, r1.v, m1, wts)
     uv = TI.mot_comp_uv(*ca, **ckw)
     want, plain_ms = plain_run(TI.mot_comp_uv_plain, *ca, **ckw)
-    same("mot_comp_uv", f"2 x {w // 2}x{h // 2}", uv, want, plain_ms)
+    what = (f"2 x {w // 2}x{h // 2} padded to {uv[0].shape[1]}x"
+            f"{uv[0].shape[0]}, weights {wts}")
+    same("mot_comp_uv", what, uv, want, plain_ms)
     if timed:
-        keep("mot_comp_uv", f"2 x {w // 2}x{h // 2}",
-             lambda: TI.mot_comp_uv(*ca, **ckw), plain_ms,
-             (nbytes(*ca, *uv), 3 * w * h // 2))
+        keep("mot_comp_uv", what, lambda: TI.mot_comp_uv(*ca, **ckw),
+             plain_ms, (synthesis_bytes("mot_comp_uv", w // 2, h // 2, 4, 1,
+                                        *uv), 3 * 2 * uv[0].numel()))
+
+
+def synthesis_bytes(kname, w, h, planes, fields, *outs):
+    """Bytes a synthesis call must move: of each input plane only the
+    windows' reach, the plane and its +-clip_pad halo; of each vector field
+    the cells that cover the plane; each padded output once."""
+    from thor_tpu_torch.ops import interp as TI
+    cs, clip = TI.MC_GEOMETRY[kname]
+    cells = -(-w // cs) * -(-h // cs)
+    return (planes * (w + 2 * clip) * (h + 2 * clip) + fields * cells * 8
+            + nbytes(*outs))
+
+
+def window_paths(mv0, mv1, w, h, cs, clip):
+    """(cells with both windows inside the halo, with one, with none) of
+    a synthesis call's grid: the average of unclipped windows, one window
+    alone, and the average of windows clipped pixel by pixel."""
+    def inside(mv):
+        bh, bw = mv.shape[:2]
+        xs = (torch.arange(bw, device=mv.device) * cs)[None] \
+            + ((mv[..., 0] + 4) >> 3)
+        ys = (torch.arange(bh, device=mv.device) * cs)[:, None] \
+            + ((mv[..., 1] + 4) >> 3)
+        return ((xs >= -clip) & (xs + cs <= w + clip) & (ys >= -clip)
+                & (ys + cs <= h + clip))
+    i0, i1 = inside(mv0), inside(mv1)
+    return (int((i0 & i1).sum()), int((i0 ^ i1).sum()),
+            int((~i0 & ~i1).sum()))
+
+
+def check_synthesis_past_halo(seed, max_err, dev):
+    """Both synthesis kernels at 1080p on seeded planes and cell vectors
+    built like the CPU tests' _mc_case: luma vectors up to 64 pels, past
+    the 4-pel (chroma 2-pel) halo, a third of each field cut to stay
+    inside, on a grid one cell row past the plane. So the one-window and
+    the clipped path run on the card at the main path's shapes."""
+    from thor_tpu_torch.ops import interp as TI
+    rng = np.random.default_rng(seed)
+    w, h = 1920, 1080
+    bw, bh = TI.me_grid(w, h)
+    bh += 1
+    mv = rng.integers(-64 * 8, 64 * 8 + 1, (2, bh, bw, 2)).astype(np.int32)
+    mv[0, ::3, ::2] //= 16
+    mv[1, ::2, ::3] //= 16
+    m0, m1 = (torch.from_numpy(a).to(dev) for a in mv)
+    ys = [torch.from_numpy(rng.integers(
+        0, 256, (h + 2 * TI.PAD_Y, w + 2 * TI.PAD_Y), np.uint8)).to(dev)
+        for _ in range(2)]
+    cs = [torch.from_numpy(rng.integers(
+        0, 256, (h // 2 + 2 * TI.PAD_C, w // 2 + 2 * TI.PAD_C),
+        np.uint8)).to(dev) for _ in range(4)]
+    wts = (9, 7)
+    ykw = dict(w=w, h=h, base=TI.PAD_Y, pad=TI.PAD_Y)
+    ckw = dict(w=w // 2, h=h // 2, base=TI.PAD_C, pad=TI.PAD_C)
+    for kname, kern, plain, paths in (
+            ("mot_comp", lambda: (TI.mot_comp(*ys, m0, m1, **ykw),),
+             lambda: (TI.mot_comp_plain(*ys, m0, m1, **ykw),),
+             window_paths(m0, m1, w, h, *TI.MC_GEOMETRY["mot_comp"])),
+            ("mot_comp_uv", lambda: TI.mot_comp_uv(*cs, m1, wts, **ckw),
+             lambda: TI.mot_comp_uv_plain(*cs, m1, wts, **ckw),
+             window_paths(*TI.chroma_vectors(m1, wts), w // 2, h // 2,
+                          *TI.MC_GEOMETRY["mot_comp_uv"]))):
+        got, want = kern(), plain()
+        err = max(int((g.long() - v.long()).abs().max().item())
+                  for g, v in zip(got, want))
+        max_err[kname] = max(max_err[kname], err)
+        if err:
+            raise AssertionError(f"{kname}[seeded 1080p past the halo]: "
+                                 f"kernel differs from its plain version "
+                                 f"(max |err| {err})")
+        log(f"[kernel] {kname}[seeded 1080p, vectors past the halo, {bw}x"
+            f"{bh} cells: {paths[0]} both windows inside, {paths[1]} one, "
+            f"{paths[2]} none (clipped)] equal to plain; "
+            f"kernel_ms={time_ms(kern):.4f}")
+
+
+def count_launches(r1, r2, ratio, pos):
+    """Kernels that one interpolate_frames call on (r1, r2) launches, and
+    those of its part from level 0's maps to the three padded planes
+    (ops/interp.synthesize), counted by torch.profiler on warm calls."""
+    from thor_tpu_torch.ops import interp as TI
+    from thor_tpu_torch.utils.profile_decode import profile_run
+    level0 = TI.level0_motion(r1, r2, ratio, pos)
+    TI.interpolate_frames(r1, r2, ratio, pos)
+    TI.synthesize(*level0)
+    torch.cuda.synchronize()
+    n_all = profile_run(lambda: TI.interpolate_frames(r1, r2, ratio, pos))[4]
+    _, _, _, top, n_tail = profile_run(lambda: TI.synthesize(*level0))
+    log(f"[launches] interpolate_frames on the 1080p RA16 frame: {n_all} "
+        f"kernels; from level 0's maps to the three padded planes "
+        f"(ops/interp.synthesize): {n_tail}: "
+        + "; ".join(f"{n} x {name} {ms:.4f} ms" for ms, n, name in top)
+        + " (torch.profiler)")
+    if n_tail > 6:
+        raise AssertionError(f"the synthesis from level 0's maps launched "
+                             f"{n_tail} kernels, more than 6")
 
 
 def phase_interp_kernels(dev):
@@ -691,6 +785,7 @@ def phase_interp_kernels(dev):
     r1, r2, ratio, pos = first_interp_pair(dev)
     check_pyramid(f"1080p RA16 first interpolated frame ({ratio},{pos})",
                   r1, r2, ratio, pos, rows, max_err, timed=True)
+    count_launches(r1, r2, ratio, pos)
     for seed, (w, h), (ratio, pos) in ((5, (352, 288), (2, 1)),
                                        (6, (352, 288), (4, 3)),
                                        (7, (352, 288), (16, 7)),
@@ -698,6 +793,7 @@ def phase_interp_kernels(dev):
         a, b = correlated_frames(seed, w, h, (2, 3), dev)
         check_pyramid(f"seeded {w}x{h} ({ratio},{pos})", a, b, ratio, pos,
                       rows, max_err, timed=False)
+    check_synthesis_past_halo(9, max_err, dev)
     return rows, max_err
 
 
@@ -1188,9 +1284,10 @@ def main():
     log(f"[summary] ms / plain_ms / bound_ms are per frame at the 1080p "
         f"shapes: mc_frame and intra_scan one Y and one U/V launch, "
         f"me_level its four pyramid levels, mot_comp and mot_comp_uv one "
-        f"launch, encode_scan one Y and one U/V launch at the 1080p I "
-        f"frame; launches: mc_frame and intra_scan over the {nframes}-frame "
-        f"LDB decode, the interpolation kernels over the {nframes}-frame "
+        f"launch each, writing the padded planes, encode_scan one Y and one "
+        f"U/V launch at the 1080p I frame; launches: mc_frame and "
+        f"intra_scan over the {nframes}-frame LDB decode, the interpolation "
+        f"kernels over the {nframes}-frame "
         f"RA16 decode (launches_ra16_path: those five there), encode_scan "
         f"over the 3-frame 1080p all-intra encode; {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)

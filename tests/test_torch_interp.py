@@ -160,34 +160,133 @@ def _mc_case(seed, w, h, cs, base, reach):
     return planes, mv0, mv1
 
 
-def test_mot_comp_plain_matches_pallas_interpret():
-    w, h, cs, base = 48, 32, 8, 96
-    planes, mv0, mv1 = _mc_case(31, w, h, cs, base, 20)
-    kw = dict(w=w, h=h, cs=cs, clip_pad=4, base=base)
+def _jax_pad(a, pad):
+    return np.pad(np.asarray(a), pad, mode="edge")
+
+
+@pytest.mark.parametrize("seed,w,h,pad,reach", [
+    (31, 48, 32, 0, 20), (179, 48, 32, 96, 4), (195, 48, 32, 96, 20),
+    (269, 118, 70, 96, 24), (152, 118, 70, 0, 3)])
+def test_mot_comp_plain_matches_pallas_interpret(seed, w, h, pad, reach):
+    """The TPU kernel in interpret mode, edge-padded by `pad` as
+    interpolate_frames_pallas pads it, against the plain version's padded
+    plane. reach 3-4 pels keeps the windows inside the +-4-pel halo but at
+    the frame's edge, 20-24 takes them past it; 118x70 is a multiple of no
+    cell, on a grid one cell row and two columns wider than the plane."""
+    cs, base = 8, 96
+    planes, mv0, mv1 = _mc_case(seed, w, h, cs, base, reach)
+    kw = dict(w=w, h=h, base=base)
     n0 = TI.mot_comp_plain.calls
     got = TI.mot_comp(*(torch.from_numpy(a) for a in
-                        (planes[0], planes[1], mv0, mv1)), **kw).numpy()
+                        (planes[0], planes[1], mv0, mv1)), pad=pad,
+                      **kw).numpy()
     assert TI.mot_comp_plain.calls == n0 + 1
-    want = np.asarray(PI.mot_comp_pallas(
+    want = _jax_pad(PI.mot_comp_pallas(
         *(jnp.asarray(a) for a in (planes[0], planes[1], mv0, mv1)),
-        interpret=True, **kw))
-    assert got.shape == (h, w) and got.dtype == np.uint8
+        cs=cs, clip_pad=4, interpret=True, **kw), pad)
+    assert got.shape == (h + 2 * pad, w + 2 * pad) and got.dtype == np.uint8
     assert np.array_equal(got, want)
 
 
-def test_mot_comp_uv_plain_matches_pallas_interpret():
-    w, h, cs, base = 24, 16, 4, 48
-    planes, mv0, mv1 = _mc_case(32, w, h, cs, base, 12)
-    kw = dict(w=w, h=h, cs=cs, clip_pad=2, base=base)
+def _jax_uv(planes, m1, wts, pad, **kw):
+    """mot_comp_pallas_uv on the chroma vectors as interpolate_frames_pallas
+    derives them from the luma mv1 field, edge-padded by `pad`."""
+    c1 = jnp.asarray(m1) >> 1
+    c0 = jnp.stack([DI._scale_val_j(c1[:, :, k], -wts[1], wts[0])
+                    for k in range(2)], -1)
+    u, v = PI.mot_comp_pallas_uv(*(jnp.asarray(a) for a in planes), c0, c1,
+                                 interpret=True, **kw)
+    return _jax_pad(u, pad), _jax_pad(v, pad)
+
+
+@pytest.mark.parametrize("seed,w,h,pad,wts", [
+    (105, 24, 16, 48, (1, 1)), (107, 24, 16, 48, (3, 1)),
+    (32, 24, 16, 0, (9, 7)), (148, 59, 35, 48, (9, 7))])
+def test_mot_comp_uv_plain_matches_pallas_interpret(seed, w, h, pad, wts):
+    """The U/V pass on the luma mv1 field: the plain version derives c1 =
+    m1 >> 1 and c0 = _scale_val(c1, -wt1, wt0) itself; the TPU kernel
+    takes them from thor_tpu's _scale_val_j. 59x35 is a multiple of no
+    cell."""
+    cs, base = 4, 48
+    planes, _, m1 = _mc_case(seed, w, h, cs, base, 12)
+    kw = dict(w=w, h=h, base=base)
     n0 = TI.mot_comp_uv_plain.calls
-    u, v = TI.mot_comp_uv(*(torch.from_numpy(a) for a in
-                            (*planes, mv0, mv1)), **kw)
+    u, v = TI.mot_comp_uv(*(torch.from_numpy(a) for a in (*planes, m1)),
+                          wts, pad=pad, **kw)
     assert TI.mot_comp_uv_plain.calls == n0 + 1
-    wu, wv = PI.mot_comp_pallas_uv(*(jnp.asarray(a) for a in
-                                     (*planes, mv0, mv1)),
-                                   interpret=True, **kw)
-    assert np.array_equal(u.numpy(), np.asarray(wu))
-    assert np.array_equal(v.numpy(), np.asarray(wv))
+    wu, wv = _jax_uv(planes, m1, wts, pad, cs=cs, clip_pad=2, **kw)
+    assert u.shape == (h + 2 * pad, w + 2 * pad)
+    assert np.array_equal(u.numpy(), wu)
+    assert np.array_equal(v.numpy(), wv)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda cs, clip: dict(base=clip + 7), "base"),
+    (lambda cs, clip: dict(pad=-cs), "pad -"),
+    (lambda cs, clip: dict(pad=cs + 2), "not a non-negative multiple"),
+    (lambda cs, clip: dict(h=40), "does not cover"),
+    (lambda cs, clip: dict(w=40), "does not cover")],
+    ids=["base-below-clip-pad-plus-8", "negative-pad", "pad-not-multiple",
+         "grid-shorter-than-plane", "grid-smaller-than-plane"])
+@pytest.mark.parametrize("uv", [False, True])
+def test_mot_comp_wrappers_refuse_bad_geometry(bad, match, uv):
+    """Both wrappers refuse, whatever the device, what the kernels do not
+    take; their own geometry (luma: cs 8, clip_pad 4, base and pad 96;
+    U/V: 4, 2, 48, 48) on a 32x32 plane and a grid that covers it is
+    taken."""
+    cs, clip = TI.MC_GEOMETRY["mot_comp_uv" if uv else "mot_comp"]
+    kw = dict(w=32, h=32, base=24 * cs, pad=24 * cs)
+    m = torch.zeros((32 // cs, 32 // cs, 2), dtype=torch.int32)
+    p = torch.zeros((32 + 48 * cs,) * 2, dtype=torch.uint8)
+
+    def call(**kw):
+        if uv:
+            return TI.mot_comp_uv(p, p, p, p, m, (1, 1), **kw)
+        return TI.mot_comp(p, p, m, m, **kw)
+
+    call(**kw)
+    kw.update(bad(cs, clip))
+    with pytest.raises(ValueError, match=match):
+        call(**kw)
+
+
+def test_mot_comp_uv_refuses_a_weight_of_zero():
+    m = torch.zeros((8, 8, 2), dtype=torch.int32)
+    p = torch.zeros((128, 128), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="wt0"):
+        TI.mot_comp_uv(p, p, p, p, m, (0, 2), w=32, h=32, base=48)
+
+
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::mot_comp_row_kernel<8, 4, false>(unsigned "
+    "char const*, unsigned char const*, unsigned char*, unsigned char const*",
+    "void (anonymous namespace)::mot_comp_row_kernel<4, 2, true>(unsigned "
+    "char const*, unsigned char const*, unsigned char*, unsigned char const*",
+    "mot_comp_kernel(unsigned char const*, unsigned char const*, unsigned "
+    "char*, unsigned char const*"])
+def test_profile_groups_the_synthesis_kernels(name):
+    """utils/profile_decode files both synthesis kernels, by the names
+    torch.profiler gives them on the card, under csrc/interp_mc.cu; also
+    the single kernel of earlier trees, which tools/ab_decode.py profiles
+    with this profiler."""
+    from thor_tpu_torch.utils.profile_decode import _group
+    assert _group(name) == "mot_comp + mot_comp_uv (csrc/interp_mc.cu)"
+
+
+def test_synthesize_gives_interior_views_of_the_padded_planes():
+    """y, u, v are the padded planes' interiors, and the padded planes
+    are the edge padding of y, u, v."""
+    rng = np.random.default_rng(41)
+    w, h = 64, 48
+    r0, r1 = _mk_refs(rng, w, h, (1, 2))
+    bw, bh = TI.me_grid(w, h)
+    maps = [torch.from_numpy(rng.integers(-80, 81, (bh, bw)).astype(
+        np.int32)) for _ in range(5)]
+    out = TI.synthesize(r0.to("cpu"), r1.to("cpu"), maps, (3, 1), w, h)
+    for plane, padded, pad in zip(out[:3], out[3:], (96, 48, 48)):
+        assert plane.data_ptr() == padded[pad:, pad:].data_ptr()
+        assert np.array_equal(padded.numpy(),
+                              np.pad(plane.numpy(), pad, mode="edge"))
 
 
 @pytest.mark.parametrize("w,h,pad_in", [(64, 48, 96), (45, 33, 32)])
@@ -248,7 +347,7 @@ def test_wrappers_refuse_other_devices():
                     guided=False)
     m = torch.zeros((2, 2, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        TI.mot_comp(t, t, m, m, w=16, h=16, cs=8, clip_pad=4, base=32)
+        TI.mot_comp(t, t, m, m, w=16, h=16, base=32)
 
 
 # ---------------------------------------------------------------------------
@@ -312,30 +411,53 @@ def test_cuda_me_level_stats_count_the_walk():
     assert got[0] == got[1] and got[0][0] >= bw * bh // 4
 
 
+def _offset_copy(t, k):
+    """A contiguous copy of `t` whose data starts k bytes past an aligned
+    address: rows of the padded planes then start anywhere in a word."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    out = buf[k:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("plane", ["luma", "chroma"])
-def test_cuda_mot_comp_matches_plain(plane):
+@pytest.mark.parametrize("case", [
+    ("luma", 61, 120, 72, 0, None, 0), ("luma", 277, 120, 72, 96, None, 0),
+    ("luma", 275, 118, 70, 96, None, 0), ("luma", 179, 118, 70, 0, None, 3),
+    ("luma", 189, 120, 72, 8, None, 1),
+    ("chroma", 61, 60, 36, 0, (3, 1), 0),
+    ("chroma", 169, 60, 36, 48, (1, 1), 0),
+    ("chroma", 168, 59, 35, 48, (9, 7), 0),
+    ("chroma", 120, 59, 35, 0, (5, 3), 2),
+    ("chroma", 125, 60, 36, 4, (16, 1), 1)])
+def test_cuda_mot_comp_matches_plain(case):
+    """Both kernels, unpadded and padded (a pad of one cell too), on sizes
+    that are a multiple of the cell and of none (118x70, 59x35: rows of the
+    padded output start mid-word and the last word of a row is partial), on
+    a grid one cell row past the plane, with vectors past the halo, and on
+    input planes that start off a word boundary: equal to the plain
+    version, one launch per call."""
     dev = _cuda()
-    if plane == "luma":
-        w, h, cs, base, clip = 120, 72, 8, 96, 4
-    else:
-        w, h, cs, base, clip = 60, 36, 4, 48, 2
-    planes, mv0, mv1 = _mc_case(61, w, h, cs, base, 24)
-    kw = dict(w=w, h=h, cs=cs, clip_pad=clip, base=base)
+    plane, seed, w, h, pad, wts, offset = case
+    cs, base = (8, 96) if plane == "luma" else (4, 48)
+    planes, mv0, mv1 = _mc_case(seed, w, h, cs, base, 24)
+    kw = dict(w=w, h=h, base=base, pad=pad)
     cpu = [torch.from_numpy(a) for a in (*planes, mv0, mv1)]
-    gpu = [t.to(dev) for t in cpu]
+    gpu = [_offset_copy(t.to(dev), offset) for t in cpu[:4]] \
+        + [t.to(dev) for t in cpu[4:]]
     if plane == "luma":
         want = [TI.mot_comp_plain(cpu[0], cpu[1], cpu[4], cpu[5], **kw)]
         n0 = TI.mot_comp.launches
         got = [TI.mot_comp(gpu[0], gpu[1], gpu[4], gpu[5], **kw)]
         assert TI.mot_comp.launches == n0 + 1
     else:
-        want = TI.mot_comp_uv_plain(*cpu, **kw)
+        want = TI.mot_comp_uv_plain(*cpu[:4], cpu[5], wts, **kw)
         n0 = TI.mot_comp_uv.launches
-        got = TI.mot_comp_uv(*gpu, **kw)
+        got = TI.mot_comp_uv(*gpu[:4], gpu[5], wts, **kw)
         assert TI.mot_comp_uv.launches == n0 + 1
     torch.cuda.synchronize()
     for g, wv in zip(got, want):
+        assert g.shape == (h + 2 * pad, w + 2 * pad)
         assert np.array_equal(g.cpu().numpy(), wv.numpy())
 
 
@@ -365,5 +487,7 @@ def test_cuda_wrappers_raise_on_bad_tensors():
                     pad=32, guided=False)
     m = torch.zeros((2, 2, 2), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="plane 1"):
-        TI.mot_comp(p, p[:, :40], m, m, w=16, h=16, cs=8, clip_pad=4,
-                    base=32)
+        TI.mot_comp(p, p[:, :40], m, m, w=16, h=16, base=32)
+    m4 = torch.zeros((4, 4, 2), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="m1"):
+        TI.mot_comp_uv(p, p, p, p, m4, (1, 1), w=16, h=16, base=32)

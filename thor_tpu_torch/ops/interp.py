@@ -11,7 +11,9 @@ forms) and thor_tpu/ops/pallas_interp.py (the three TPU kernels):
   smoothing pass (TPU kernel _me_level_kernel, which decides the blocks in
   raster order);
 - `mot_comp`, `mot_comp_uv`: the averaged bi-MC synthesis of the luma plane
-  and of the U/V pair (TPU kernels _mot_comp_kernel, _mot_comp_kernel_uv).
+  and of the U/V pair (TPU kernels _mot_comp_kernel, _mot_comp_kernel_uv),
+  written with the codec padding of a reference plane; the U/V pass
+  derives its vectors from the luma field.
 
 Each of the three has a CUDA kernel (csrc/interp_me.cu, csrc/interp_mc.cu)
 and a plain PyTorch version here. A wrapper takes the plain version for a
@@ -371,22 +373,42 @@ def _comp_plane(p0p, p1p, mv0, mv1, w, h, cs, clip_pad, base):
     return out[:h, :w].to(U8).contiguous()
 
 
-def mot_comp_plain(p0p, p1p, mv0, mv1, *, w: int, h: int, cs: int,
-                   clip_pad: int, base: int):
+# (cs, clip_pad) of each synthesis kernel (compile-time constants of
+# csrc/interp_mc.cu): the luma and the chroma cells of the frame
+MC_GEOMETRY = {"mot_comp": (BLOCK_STEP // 2, BLOCK_STEP // 4),
+               "mot_comp_uv": (BLOCK_STEP // 4, BLOCK_STEP // 8)}
+MC_MARGIN = 8       # least base - clip_pad: room for the aligned loads
+
+
+def mot_comp_plain(p0p, p1p, mv0, mv1, *, w: int, h: int, base: int,
+                   pad: int = 0):
     """Plain version of `mot_comp`."""
     mot_comp_plain.calls += 1
-    return _comp_plane(p0p, p1p, mv0, mv1, w, h, cs, clip_pad, base)
+    cs, clip_pad = MC_GEOMETRY["mot_comp"]
+    return edge_pad(_comp_plane(p0p, p1p, mv0, mv1, w, h, cs, clip_pad, base),
+                    pad)
 
 
 mot_comp_plain.calls = 0
 
 
-def mot_comp_uv_plain(p0u, p1u, p0v, p1v, mv0, mv1, *, w: int, h: int,
-                      cs: int, clip_pad: int, base: int):
+def chroma_vectors(m1, wts):
+    """(c0, c1): the U/V cell vectors of the interpolated frame from the
+    luma mv1 field, c1 = m1 >> 1 and c0 its twin scaled by -wt1 / wt0
+    (thor_tpu pallas_interp.interpolate_frames_pallas)."""
+    c1 = m1 >> 1
+    return _scale_val(c1, -int(wts[1]), int(wts[0])), c1
+
+
+def mot_comp_uv_plain(p0u, p1u, p0v, p1v, m1, wts, *, w: int, h: int,
+                      base: int, pad: int = 0):
     """Plain version of `mot_comp_uv`."""
     mot_comp_uv_plain.calls += 1
-    return (_comp_plane(p0u, p1u, mv0, mv1, w, h, cs, clip_pad, base),
-            _comp_plane(p0v, p1v, mv0, mv1, w, h, cs, clip_pad, base))
+    cs, clip_pad = MC_GEOMETRY["mot_comp_uv"]
+    c0, c1 = chroma_vectors(m1, wts)
+    return tuple(edge_pad(_comp_plane(p0, p1, c0, c1, w, h, cs, clip_pad,
+                                      base), pad)
+                 for p0, p1 in ((p0u, p1u), (p0v, p1v)))
 
 
 mot_comp_uv_plain.calls = 0
@@ -408,7 +430,9 @@ def _kernel(name: str):
             L.thor_interp_me_level.argtypes = [vp, vp] + [ci] * 6 + [vp] * 6
         else:
             L.thor_interp_mot_comp.restype = ci
-            L.thor_interp_mot_comp.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+            L.thor_interp_mot_comp.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+            L.thor_interp_mot_comp_uv.restype = ci
+            L.thor_interp_mot_comp_uv.argtypes = [vp] * 7 + [ci] * 8 + [vp]
         L.thor_cuda_error_string.restype = ctypes.c_char_p
         L.thor_cuda_error_string.argtypes = [ci]
         _libs[name] = L
@@ -482,42 +506,53 @@ def me_level(pic0p, pic1p, guide_x, guide_y, wts, *, w: int, h: int,
 me_level.launches = 0
 
 
-def _mot_comp_launch(fn, planes, mv0, mv1, w, h, cs, clip_pad, base):
-    dev = planes[0].device
-    bh, bw = mv0.shape[:2]
-    shape = (h + 2 * base, w + 2 * base)
+def _mc_args(fn, mv, w, h, base, pad):
+    """Refuse what the synthesis kernels do not take, on every device."""
+    cs, clip_pad = MC_GEOMETRY[fn]
+    bh, bw = mv.shape[:2]
+    if bh * cs < h or bw * cs < w:
+        raise ValueError(f"{fn}: a {bw}x{bh} grid of {cs}x{cs} cells does "
+                         f"not cover {w}x{h}")
+    if base < clip_pad + MC_MARGIN:
+        raise ValueError(f"{fn}: base {base} < clip_pad + {MC_MARGIN}")
+    if pad < 0 or pad % cs:
+        raise ValueError(f"{fn}: pad {pad} is not a non-negative multiple "
+                         f"of cs {cs}")
+
+
+def _check_mc(fn, dev, planes, vecs, w, h, base):
+    """The [h + 2 base, w + 2 base] uint8 planes and the [bh, bw, 2] int32
+    vector fields (named) of one synthesis call."""
+    shape, vshape = (h + 2 * base, w + 2 * base), tuple(vecs[0][1].shape)
     _check(fn, dev, [(f"plane {i}", p, U8, shape)
                      for i, p in enumerate(planes)]
-           + [("mv0", mv0, I32, (bh, bw, 2)), ("mv1", mv1, I32, (bh, bw, 2))])
-    if bh * cs < h or bw * cs < w or clip_pad > base:
-        raise ValueError(f"{fn}: a {bw}x{bh} grid of {cs}x{cs} cells does "
-                         f"not cover {w}x{h}, or clip_pad > base")
-    outs = [torch.empty((h, w), dtype=U8, device=dev)
-            for _ in range(len(planes) // 2)]
-    a = [planes[0], planes[1], outs[0]]
-    b = [planes[2], planes[3], outs[1]] if len(outs) == 2 else [None] * 3
-    L = _kernel("interp_mc")
-    _raise_on(L.thor_interp_mot_comp(
-        *(t.data_ptr() if t is not None else None for t in a + b),
-        mv0.data_ptr(), mv1.data_ptr(), bw, bh, w, h, cs, clip_pad, base,
-        torch.cuda.current_stream(dev).cuda_stream), fn, L)
-    return outs
+           + [(name, v, I32, vshape[:2] + (2,)) for name, v in vecs])
 
 
-def mot_comp(p0p, p1p, mv0, mv1, *, w: int, h: int, cs: int, clip_pad: int,
-             base: int):
-    """Averaged bi-MC synthesis of one plane.
+def mot_comp(p0p, p1p, mv0, mv1, *, w: int, h: int, base: int, pad: int = 0):
+    """Averaged bi-MC synthesis of the luma plane.
 
     p0p, p1p: [h + 2 base, w + 2 base] uint8 codec-padded planes; mv0,
-    mv1: [bh, bw, 2] int32 cell vectors (x, y) in this plane's units, one
-    per cs x cs cell; windows are clipped to +-clip_pad around the plane.
-    Returns [h, w] uint8. CPU tensor: plain version; CUDA tensor:
-    csrc/interp_mc.cu."""
+    mv1: [bh, bw, 2] int32 cell vectors (x, y), one per cs x cs cell;
+    windows are clipped to +-clip_pad around the plane ((cs, clip_pad) is
+    MC_GEOMETRY's; base >= clip_pad + MC_MARGIN). Returns the [h, w] uint8
+    plane edge-padded by `pad` (a multiple of cs): [h + 2 pad, w + 2 pad].
+    CPU tensor: plain version; CUDA tensor: csrc/interp_mc.cu, one
+    launch."""
+    _mc_args("mot_comp", mv0, w, h, base, pad)
     if p0p.device.type == "cpu":
-        return mot_comp_plain(p0p, p1p, mv0, mv1, w=w, h=h, cs=cs,
-                              clip_pad=clip_pad, base=base)
-    out, = _mot_comp_launch("mot_comp", (p0p, p1p), mv0, mv1, w, h, cs,
-                            clip_pad, base)
+        return mot_comp_plain(p0p, p1p, mv0, mv1, w=w, h=h, base=base,
+                              pad=pad)
+    dev = p0p.device
+    bh, bw = mv0.shape[:2]
+    _check_mc("mot_comp", dev, (p0p, p1p), [("mv0", mv0), ("mv1", mv1)], w,
+              h, base)
+    out = torch.empty((h + 2 * pad, w + 2 * pad), dtype=U8, device=dev)
+    L = _kernel("interp_mc")
+    _raise_on(L.thor_interp_mot_comp(
+        p0p.data_ptr(), p1p.data_ptr(), out.data_ptr(), mv0.data_ptr(),
+        mv1.data_ptr(), bw, bh, w, h, base, pad,
+        torch.cuda.current_stream(dev).cuda_stream), "mot_comp", L)
     mot_comp.launches += 1
     return out
 
@@ -525,15 +560,32 @@ def mot_comp(p0p, p1p, mv0, mv1, *, w: int, h: int, cs: int, clip_pad: int,
 mot_comp.launches = 0
 
 
-def mot_comp_uv(p0u, p1u, p0v, p1v, mv0, mv1, *, w: int, h: int, cs: int,
-                clip_pad: int, base: int):
-    """`mot_comp` for U and V in one pass on their shared (halved) MV
-    field. Returns ([h, w] u, [h, w] v) uint8."""
+def mot_comp_uv(p0u, p1u, p0v, p1v, m1, wts, *, w: int, h: int, base: int,
+                pad: int = 0):
+    """`mot_comp` for U and V in one pass on the vectors
+    `chroma_vectors(m1, wts)`, which the kernel derives per cell from the
+    luma mv1 field m1 ([bh, bw, 2] int32 on the chroma cell grid) and the
+    weights (wt0 > 0, wt1). Returns (u, v), each [h + 2 pad, w + 2 pad]
+    uint8."""
+    _mc_args("mot_comp_uv", m1, w, h, base, pad)
+    wt0, wt1 = int(wts[0]), int(wts[1])
+    if wt0 <= 0:
+        raise ValueError("mot_comp_uv: wt0 must be positive")
     if p0u.device.type == "cpu":
-        return mot_comp_uv_plain(p0u, p1u, p0v, p1v, mv0, mv1, w=w, h=h,
-                                 cs=cs, clip_pad=clip_pad, base=base)
-    u, v = _mot_comp_launch("mot_comp_uv", (p0u, p1u, p0v, p1v), mv0, mv1,
-                            w, h, cs, clip_pad, base)
+        return mot_comp_uv_plain(p0u, p1u, p0v, p1v, m1, (wt0, wt1), w=w, h=h,
+                                 base=base, pad=pad)
+    dev = p0u.device
+    bh, bw = m1.shape[:2]
+    _check_mc("mot_comp_uv", dev, (p0u, p1u, p0v, p1v), [("m1", m1)], w, h,
+              base)
+    u, v = (torch.empty((h + 2 * pad, w + 2 * pad), dtype=U8, device=dev)
+            for _ in range(2))
+    L = _kernel("interp_mc")
+    _raise_on(L.thor_interp_mot_comp_uv(
+        p0u.data_ptr(), p1u.data_ptr(), p0v.data_ptr(), p1v.data_ptr(),
+        u.data_ptr(), v.data_ptr(), m1.data_ptr(), bw, bh, w, h, base, pad,
+        wt0, wt1, torch.cuda.current_stream(dev).cuda_stream),
+        "mot_comp_uv", L)
     mot_comp_uv.launches += 1
     return u, v
 
@@ -564,8 +616,9 @@ def interp_weights(ratio: int, pos: int):
 
 def estimate_motion(lv0, lv1, w: int, h: int, wts, on_level=None):
     """Coarse-to-fine ME over two pyramids (already swapped on the
-    reversed path). Returns level 0's (mv0, mv1), each [bh, bw, 2] int32.
-    `on_level(lvl, args, kwargs, maps)` sees every me_level call."""
+    reversed path). Returns level 0's maps (mv0x, mv0y, mv1x, mv1y, bg),
+    each [bh, bw] int32. `on_level(lvl, args, kwargs, maps)` sees every
+    me_level call."""
     gx = gy = None
     maps = None
     for lvl in range(len(lv0) - 1, -1, -1):
@@ -579,8 +632,45 @@ def estimate_motion(lv0, lv1, w: int, h: int, wts, on_level=None):
             bwo, bho = me_grid(w >> (lvl - 1), h >> (lvl - 1))
             gx = upscale_mv(maps[2], bwo, bho)
             gy = upscale_mv(maps[3], bwo, bho)
+    return maps
+
+
+def cell_vectors(maps):
+    """(mv0, mv1), each [bh, bw, 2] int32 (x, y), from a level's maps."""
     return (torch.stack([maps[0], maps[1]], -1),
             torch.stack([maps[2], maps[3]], -1))
+
+
+def level0_motion(ref0, ref1, ratio: int, pos: int, on_level=None):
+    """The motion search of the frame at `pos` of `ratio` between two
+    references: (ref0, ref1 as the reversed path swaps them, level 0's
+    maps, (wt0, wt1), w, h), the arguments of `synthesize`. `on_level` as
+    in `estimate_motion`."""
+    h, w = ref0.y.shape[0] - 2 * PAD_Y, ref0.y.shape[1] - 2 * PAD_Y
+    rev, wt0, wt1 = interp_weights(ratio, pos)
+    if rev:
+        ref0, ref1 = ref1, ref0
+    levels = num_levels(w, h)
+    maps = estimate_motion(build_pyramid(ref0.y, w, h, levels),
+                           build_pyramid(ref1.y, w, h, levels), w, h,
+                           (wt0, wt1), on_level=on_level)
+    return ref0, ref1, maps, (wt0, wt1), w, h
+
+
+def synthesize(ref0, ref1, maps, wts, w: int, h: int):
+    """Level 0's maps -> (y, u, v, yp, up, vp): the interpolated frame's
+    three planes with their codec padding (96 / 48), written by the two
+    synthesis kernels, and views of their interiors. U and V use the
+    vectors the kernel derives from the luma mv1 and the weights. On the
+    card: four launches (the two stacks of `cell_vectors`, `mot_comp`,
+    `mot_comp_uv`)."""
+    m0, m1 = cell_vectors(maps)
+    yp = mot_comp(ref0.y, ref1.y, m0, m1, w=w, h=h, base=PAD_Y, pad=PAD_Y)
+    up, vp = mot_comp_uv(ref0.u, ref1.u, ref0.v, ref1.v, m1, wts, w=w // 2,
+                         h=h // 2, base=PAD_C, pad=PAD_C)
+    return (yp[PAD_Y:PAD_Y + h, PAD_Y:PAD_Y + w],
+            *(p[PAD_C:PAD_C + h // 2, PAD_C:PAD_C + w // 2] for p in (up, vp)),
+            yp, up, vp)
 
 
 def interpolate_frames(ref0, ref1, ratio: int, pos: int):
@@ -588,23 +678,7 @@ def interpolate_frames(ref0, ref1, ratio: int, pos: int):
 
     ref0, ref1: objects whose .y / .u / .v are codec-padded uint8 planes
     (pads 96 / 48) on one device. Returns (y, u, v, yp, up, vp): the
-    unpadded planes and their edge-padded reference versions, on that
-    device. Nothing here waits for the device or reads a value from it
-    (thor_tpu pallas_interp.interpolate_frames_pallas)."""
-    h, w = ref0.y.shape[0] - 2 * PAD_Y, ref0.y.shape[1] - 2 * PAD_Y
-    rev, wt0, wt1 = interp_weights(ratio, pos)
-    if rev:
-        ref0, ref1 = ref1, ref0
-    levels = num_levels(w, h)
-    m0, m1 = estimate_motion(build_pyramid(ref0.y, w, h, levels),
-                             build_pyramid(ref1.y, w, h, levels), w, h,
-                             (wt0, wt1))
-    y = mot_comp(ref0.y, ref1.y, m0, m1, w=w, h=h, cs=BLOCK_STEP // 2,
-                 clip_pad=BLOCK_STEP // 4, base=PAD_Y)
-    c1 = m1 >> 1
-    c0 = _scale_val(c1, -wt1, wt0)
-    u, v = mot_comp_uv(ref0.u, ref1.u, ref0.v, ref1.v, c0, c1, w=w // 2,
-                       h=h // 2, cs=BLOCK_STEP // 4,
-                       clip_pad=BLOCK_STEP // 8, base=PAD_C)
-    return (y, u, v, edge_pad(y, PAD_Y), edge_pad(u, PAD_C),
-            edge_pad(v, PAD_C))
+    edge-padded reference planes and views of their unpadded interiors, on
+    that device. Nothing here waits for the device or reads a value from
+    it (thor_tpu pallas_interp.interpolate_frames_pallas)."""
+    return synthesize(*level0_motion(ref0, ref1, ratio, pos))

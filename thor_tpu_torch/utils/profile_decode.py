@@ -56,7 +56,7 @@ def host_stages(path):
 
 
 def _group(name: str) -> str:
-    if "mot_comp_kernel" in name:
+    if "mot_comp_" in name:    # mot_comp_row_kernel, earlier mot_comp_kernel
         return "mot_comp + mot_comp_uv (csrc/interp_mc.cu)"
     if "me_walk_kernel" in name or "me_merge_kernel" in name:
         return "me_level (csrc/interp_me.cu)"
@@ -90,7 +90,9 @@ def profile_run(run):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        if not us or e.key.startswith("aten::") or e.key.startswith("cuda"):
+        # CUPTI's own buffer requests show as device events: not launches
+        if not us or e.key.startswith("aten::") or e.key.startswith("cuda") \
+                or e.key == "Activity Buffer Request":
             continue
         g = _group(e.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3

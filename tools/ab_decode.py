@@ -11,10 +11,12 @@ testdata/LDB_medium_complexity_1080.bit and
 testdata/RA16_high_efficiency_1080.bit once to warm up and then three
 times in a row on the host clock (chip_smoke.timed_decodes: sha256
 checked every time, fps median and spread). Then, once per tree, it runs
-`python -m thor_tpu_torch.utils.profile_decode` on both streams: device
-time by kernel, device idle share, and the host's parse and input-build
-ms per frame. Everything is printed; nothing is compared for you. Needs
-a CUDA device; imports nothing of JAX.
+this tree's thor_tpu_torch/utils/profile_decode.py on that tree's decoder,
+so that both are counted by one profiler: on both streams device time by
+kernel, device idle share, and the host's parse and input-build ms per
+frame; and the kernels that one interpolate_frames call launches on the
+RA16 stream's first interpolated frame. Everything is printed; nothing is
+compared for you. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +40,33 @@ for name in %r:
     assert S.decode(path, dev)[1] == want
     S.timed_decodes(path, want, dev, card)
 """ % (STREAMS,)
+
+# this tree's profiler, loaded into the package of the tree the process
+# runs in (its relative imports resolve there)
+PROFILER = """
+import importlib.util, sys
+sys.path.insert(0, ".")
+import thor_tpu_torch.utils
+spec = importlib.util.spec_from_file_location(
+    "thor_tpu_torch.utils.profile_decode", %r)
+P = importlib.util.module_from_spec(spec)
+sys.modules[spec.name] = P
+spec.loader.exec_module(P)
+""" % (str(ROOT / "thor_tpu_torch" / "utils" / "profile_decode.py"),)
+
+PROFILE = PROFILER + "P.main(sys.argv[1:])\n"
+
+LAUNCHES = PROFILER + """
+import torch
+import chip_smoke as S
+from thor_tpu_torch.ops import interp as TI
+r1, r2, ratio, pos = S.first_interp_pair(torch.device("cuda"))
+run = lambda: TI.interpolate_frames(r1, r2, ratio, pos)
+run()
+torch.cuda.synchronize()
+print(f"interpolate_frames on the 1080p RA16 frame ({ratio},{pos}): "
+      f"{P.profile_run(run)[4]} kernels (torch.profiler)", flush=True)
+"""
 
 
 def run(label, tree, argv):
@@ -63,8 +92,8 @@ def main(argv):
     for label in ("other", "tree"):
         for name in STREAMS:
             run(f"{label} profile", trees[label],
-                ["-m", "thor_tpu_torch.utils.profile_decode",
-                 f"testdata/{name}.bit"])
+                ["-c", PROFILE, f"testdata/{name}.bit"])
+        run(f"{label} launches", trees[label], ["-c", LAUNCHES])
     return 0
 
 

@@ -5,6 +5,7 @@
     python3 tools/ab_kernel.py intra_scan other_intra_scan.cu
     python3 tools/ab_kernel.py enc_intra_scan other_enc_intra_scan.cu
     python3 tools/ab_kernel.py mc other_mc.cu
+    python3 tools/ab_kernel.py interp_mc other_interp_mc.cu
 
 Builds thor_tpu_torch/csrc/<kernel>.cu ("tree") and the given source
 ("other", for instance an earlier commit's file written out with
@@ -38,6 +39,17 @@ mc: the Y and the U/V launch of the first P frame of
 testdata/LDB_medium_complexity_1080.bit; both sources have the entry
 thor_mc_frame of the tree's signature, and the output is cleared before
 every launch of either, as the wrapper does.
+
+interp_mc: the synthesis of the first interpolated frame of
+testdata/RA16_high_efficiency_1080.bit from level 0's maps to the three
+padded reference planes: the two stacks of ops/interp.cell_vectors, then
+Y, then U+V, timed apart and together. A source with the entry
+thor_interp_mot_comp_uv (the padded, derived-vector kernels) is called as
+the tree's is; an earlier one (thor_interp_mot_comp alone, [h, w] planes,
+explicit chroma vectors) is called as the parent's interpolate_frames
+called it: the kernel, the chroma vectors in tensor ops and an edge_pad
+of each plane. Also one torch.profiler run of each build's whole
+synthesis: its kernels, launches and device ms.
 
 Run from the repo's root; needs a CUDA device; imports nothing of JAX.
 """
@@ -87,20 +99,15 @@ def ab_interp_me(libs, dev):
     for L in libs.values():
         L.thor_interp_me_level.restype = CI
         L.thor_interp_me_level.argtypes = [VP, VP] + [CI] * 6 + [VP] * 6
-    w, h = 1920, 1080
-    levels = TI.num_levels(w, h)
     ok = True
     r1, r2, ratio, pos = S.first_interp_pair(dev)
     for label, a, b, (ratio, pos) in (
-            ("seeded", *S.correlated_frames(8, w, h, (2, 3), dev), (2, 1)),
+            ("seeded", *S.correlated_frames(8, 1920, 1080, (2, 3), dev),
+             (2, 1)),
             ("stream", r1, r2, (ratio, pos))):
-        rev, wt0, wt1 = TI.interp_weights(ratio, pos)
-        if rev:
-            a, b = b, a
         calls = []
-        TI.estimate_motion(TI.build_pyramid(a.y, w, h, levels),
-                           TI.build_pyramid(b.y, w, h, levels), w, h,
-                           (wt0, wt1), on_level=lambda *c: calls.append(c))
+        _, _, _, (wt0, wt1), _, _ = TI.level0_motion(
+            a, b, ratio, pos, on_level=lambda *c: calls.append(c))
         for lvl, args, kw, maps in calls:
             bw, bh = TI.me_grid(kw["w"], kw["h"])
             pre = torch.zeros(5 * bh * bw + bh // 2 + 1, dtype=torch.int32,
@@ -272,7 +279,96 @@ def ab_mc(libs, dev):
     return ok
 
 
-KERNELS = ("interp_me", "intra_scan", "enc_intra_scan", "mc")
+def ab_interp_mc(libs, dev, other_padded):
+    from thor_tpu_torch.ops.kernels import edge_pad
+    from thor_tpu_torch.utils.profile_decode import profile_run
+    new_style = {k: k == "tree" or other_padded for k in libs}
+    for k, L in libs.items():
+        L.thor_interp_mot_comp.restype = CI
+        if new_style[k]:
+            L.thor_interp_mot_comp.argtypes = [VP] * 5 + [CI] * 6 + [VP]
+            L.thor_interp_mot_comp_uv.restype = CI
+            L.thor_interp_mot_comp_uv.argtypes = [VP] * 7 + [CI] * 8 + [VP]
+        else:
+            L.thor_interp_mot_comp.argtypes = [VP] * 8 + [CI] * 7 + [VP]
+    r1, r2, ratio, pos = S.first_interp_pair(dev)
+    a, b, maps, (wt0, wt1), w, h = TI.level0_motion(r1, r2, ratio, pos)
+    PY, PC = TI.PAD_Y, TI.PAD_C
+    m0, m1 = TI.cell_vectors(maps)
+    bh, bw = m1.shape[:2]
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    def check(k, err):
+        if err:
+            raise RuntimeError(f"{k}: launch failed ({err})")
+
+    def luma(k, m0, m1):
+        L, s = libs[k], torch.cuda.current_stream(dev).cuda_stream
+        if new_style[k]:
+            yp = torch.empty((h + 2 * PY, w + 2 * PY), dtype=torch.uint8,
+                             device=dev)
+            check(k, L.thor_interp_mot_comp(
+                ptr(a.y), ptr(b.y), ptr(yp), ptr(m0), ptr(m1), bw, bh, w, h,
+                PY, PY, s))
+            return (yp,)
+        y = torch.empty((h, w), dtype=torch.uint8, device=dev)
+        check(k, L.thor_interp_mot_comp(
+            ptr(a.y), ptr(b.y), ptr(y), None, None, None, ptr(m0), ptr(m1),
+            bw, bh, w, h, 8, 4, PY, s))
+        return (edge_pad(y, PY),)
+
+    def chroma(k, m1):
+        L, s = libs[k], torch.cuda.current_stream(dev).cuda_stream
+        hc, wc = h // 2, w // 2
+        if new_style[k]:
+            up, vp = (torch.empty((hc + 2 * PC, wc + 2 * PC),
+                                  dtype=torch.uint8, device=dev)
+                      for _ in range(2))
+            check(k, L.thor_interp_mot_comp_uv(
+                ptr(a.u), ptr(b.u), ptr(a.v), ptr(b.v), ptr(up), ptr(vp),
+                ptr(m1), bw, bh, wc, hc, PC, PC, wt0, wt1, s))
+            return up, vp
+        c0, c1 = TI.chroma_vectors(m1, (wt0, wt1))
+        u, v = (torch.empty((hc, wc), dtype=torch.uint8, device=dev)
+                for _ in range(2))
+        check(k, L.thor_interp_mot_comp(
+            ptr(a.u), ptr(b.u), ptr(u), ptr(a.v), ptr(b.v), ptr(v), ptr(c0),
+            ptr(c1), bw, bh, wc, hc, 4, 2, PC, s))
+        return edge_pad(u, PC), edge_pad(v, PC)
+
+    def whole(k):
+        m0, m1 = TI.cell_vectors(maps)
+        return luma(k, m0, m1) + chroma(k, m1)
+
+    main_path = TI.synthesize(a, b, maps, (wt0, wt1), w, h)[3:]
+    ok = True
+    for label, fn, want in (
+            ("Y", lambda k: luma(k, m0, m1), main_path[:1]),
+            ("U+V", lambda k: chroma(k, m1), main_path[1:]),
+            ("whole synthesis from level 0's maps", whole, main_path)):
+        outs = {k: fn(k) for k in libs}
+        res = [(k, S.time_ms(lambda: fn(k))) for k in ORDER]
+        same = all(torch.equal(g, t) for k in libs
+                   for g, t in zip(outs[k], want))
+        print(f"interp_mc 1080p RA16 first interpolated frame ({ratio},"
+              f"{pos}) {label}: padded planes "
+              f"{'equal' if same else 'DIFFER'}; "
+              + " ".join(f"{k}={ms:.4f}ms" for k, ms in res), flush=True)
+        ok &= same
+    for k in ("other", "tree"):
+        whole(k)
+        torch.cuda.synchronize()
+        _, _, groups, top, n = profile_run(lambda: whole(k))
+        print(f"interp_mc {k} whole synthesis under torch.profiler: {n} "
+              f"kernels, device {sum(groups.values()):.4f} ms: "
+              + "; ".join(f"{c} x {name} {ms:.4f} ms" for ms, c, name in top),
+              flush=True)
+    return ok
+
+
+KERNELS = ("interp_me", "intra_scan", "enc_intra_scan", "mc", "interp_mc")
 
 
 def main(argv):
@@ -290,6 +386,9 @@ def main(argv):
         ok = ab_intra_scan(libs, dev, scratch)
     elif argv[1] == "enc_intra_scan":
         ok = ab_enc_intra_scan(libs, dev, scratch)
+    elif argv[1] == "interp_mc":
+        ok = ab_interp_mc(libs, dev,
+                          "thor_interp_mot_comp_uv" in other.read_text())
     else:
         ok = ab_mc(libs, dev)
     return 0 if ok else 1
