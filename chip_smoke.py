@@ -5,8 +5,9 @@
 
 Phases (any failure exits nonzero):
   1. device: the card's name and power limit;
-  2. build: every CUDA kernel from thor_tpu_torch/csrc (and the C parser),
-     with nvcc's register / shared-memory report;
+  2. build: every CUDA kernel from thor_tpu_torch/csrc (and the C parser
+     and the encoder's C walk), with nvcc's register / shared-memory
+     report;
   3. kernels: each kernel against its plain PyTorch version on the card;
      exact equality; times from CUDA events. Block MC and the intra scan at
      the shapes of the 1080p LDB stream (first P frame, I frame) and on
@@ -38,9 +39,20 @@ Phases (any failure exits nonzero):
      1920x1080 frames (the top-left crop of testdata/test_4k.yuv), which
      the port's decoder must read back to the encoder's reconstruction; a
      CIF encode with the fast transforms through the command line; and
-     the three committed thor_tpu streams (testdata/torch_enc_*.bit),
-     which the card must reproduce byte for byte;
-  5. a {"kernels": [...]} JSON line (six kernels);
+     the three committed thor_tpu all-intra streams
+     (testdata/torch_enc_intra_*.bit), which the card must reproduce byte
+     for byte. Then the encoder's P and B frames: frames 0-3 of the same
+     1080p crop in the LDB form of LDB_medium_complexity_1080.bit's header
+     (I P P P, two references, bipred), each frame with the counters set
+     to 0 just before and read just after (mc_frame on every P frame,
+     encode_scan on every P frame with intra leaves, no plain call), its
+     stage times, peak memory and PSNR-Y, then the same encode with every
+     frame under torch.profiler (kernel launches, device busy and idle
+     share), the P-frame fps, and the decode of the stream back to the
+     reconstruction; the thor_tpu P/B streams ldb_qcif and ra_qcif byte for
+     byte, the RA one through kernels 3-5 on its interpolated references;
+  5. a {"kernels": [...]} JSON line (six kernels; mc_frame and encode_scan
+     with their launches in the P/B encode);
   6. last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or thor_tpu. Without a CUDA device it exits 1 and
 prints no result.
@@ -403,9 +415,11 @@ def phase_build():
     for name in _build.CUDA_SOURCES:
         _build.cuda_library(name)
     native.lib()
+    native.decide_lib()
     dt = time.perf_counter() - t0
-    log(f"[build] CUDA kernels {list(_build.CUDA_SOURCES)} and the C parser "
-        f"ready in {dt:.2f} s (built in parallel into {_build.BUILD_DIR})")
+    log(f"[build] CUDA kernels {list(_build.CUDA_SOURCES)}, the C parser and "
+        f"the encoder's C walk and emit ready in {dt:.2f} s (the CUDA "
+        f"sources built in parallel; into {_build.BUILD_DIR})")
     for name in _build.CUDA_SOURCES:
         for ln in _build.BUILD_LOG.get(name, "").splitlines():
             if any(w in ln for w in ("registers", "Compiling entry", "spill",
@@ -937,10 +951,11 @@ def enc_params(fields):
     return p
 
 
-def frames_1080():
-    """Frames 0-2 of testdata/test_4k.yuv, top-left 1920x1080."""
+def frames_1080(n=3):
+    """Frames 0..n-1 of testdata/test_4k.yuv (5 frames), top-left
+    1920x1080."""
     from tools.gen_torch_enc_goldens import crop_frames
-    return crop_frames(TESTDATA / "test_4k.yuv", 3840, 2160, 1920, 1080, 3)
+    return crop_frames(TESTDATA / "test_4k.yuv", 3840, 2160, 1920, 1080, n)
 
 
 def random_enc_case(seed, C, H, W, min_s, max_s, dev):
@@ -1216,9 +1231,12 @@ def phase_encode(dev, card, out_dir):
                          f[cut[1]:].reshape(144, 176)) for f in raw], dev,
                   f"CIF fast-path stream ({cif.stat().st_size} bytes)")
 
-    # 3. thor_tpu's streams for the same parameters and input, byte for byte
+    # 3. thor_tpu's all-intra streams for the same parameters and input,
+    # byte for byte (phase_encode_pb holds the P/B ones)
     for name in CASES:
         fields, fr = load_frames(name)
+        if fields.get("intra_period") != 1:
+            continue
         got = out_dir / f"enc_{name}.bit"
         Encoder(enc_params(fields)).encode_sequence(fr, str(got))
         same = got.read_bytes() == golden_path(name).read_bytes()
@@ -1229,6 +1247,135 @@ def phase_encode(dev, card, out_dir):
             raise AssertionError(f"{name}: the port's stream differs from "
                                  "thor_tpu's")
     return launches
+
+
+# the LDB form of LDB_medium_complexity_1080.bit's sequence header (two
+# references, bipred, deblocking, CLPF, block contexts, no tb / pb split,
+# no delta-QP): I P P P, two references from frame 2
+ENC_1080_PB = dict(width=1920, height=1080, qp=32, num_frames=4,
+                   device_encode=1, max_num_ref=2, enable_bipred=1,
+                   deblocking=1, clpf=1, use_block_contexts=1,
+                   encoder_speed=0)
+PB_STAGES = ("me", "trials", "intra_search", "decide", "second_chance",
+             "final", "emit", "filters")
+
+
+def counted_encoder(base):
+    """A subclass of `base` (an Encoder) that sets every launch counter to
+    0 just before each frame and reads them just after, with the frame's
+    peak device memory: `counts` holds (launches, plain calls, peak B) per
+    frame in coding order."""
+    class Counted(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.counts = []
+
+        def encode_frame(self, w):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters()
+            super().encode_frame(w)
+            torch.cuda.synchronize()
+            self.counts.append((*read_counters(),
+                                torch.cuda.max_memory_allocated()))
+    return Counted
+
+
+def phase_encode_pb(dev, card, out_dir):
+    """The device encoder's P and B frames. Returns the launches of the
+    1080p LDB-form encode (all frames) by kernel."""
+    from thor_tpu_torch.enc.encoder import Encoder
+    from thor_tpu_torch.utils.profile_encode import ProfiledEncoder
+    from thor_tpu_torch.utils.snr import snr_plane
+    from tools.gen_torch_enc_goldens import golden_path, load_frames
+
+    # 1. full width: I P P P at 1920x1080, counters and peak memory per
+    # frame, then the same encode with every frame under torch.profiler
+    frames = frames_1080(4)
+    out = out_dir / "enc_1080_pb.bit"
+    enc = counted_encoder(Encoder)(enc_params(ENC_1080_PB))
+    t0 = time.perf_counter()
+    recons = enc.encode_sequence(frames, str(out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = ProfiledEncoder(enc_params(ENC_1080_PB))
+    prof_out = out_dir / "enc_1080_pb_prof.bit"
+    prof.encode_sequence(frames, str(prof_out))
+    if prof_out.read_bytes() != out.read_bytes():
+        raise AssertionError("the profiled 1080p P/B encode wrote other "
+                             "bytes")
+    total = {}
+    fps = []
+    for i, (ft, (launches, plain, peak), pr) in enumerate(zip(
+            enc.frame_times, enc.counts, prof.profiles)):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        psnr = snr_plane(frames[i][0], recons[i][0])
+        if i == 0:
+            stages = ("search", "scan", "emit", "filters")
+            what = f"I frame, {ft['tus']} TUs"
+        else:
+            stages = PB_STAGES
+            what = (f"P frame, {ft['pus']} MC PUs, {ft['intra_leaves']} "
+                    f"intra leaves")
+            fps.append(1.0 / sum(ft[k] for k in stages))
+        busy = sum(pr[1].values())
+        log(f"[slice] 1080p LDB-form encode, frame {i} ({what}): "
+            + ", ".join(f"{k} {ft[k] * 1e3:.1f} ms" for k in stages)
+            + f" (host clock, each stage ends in a wait for the device); "
+            f"mc_frame {launches['mc_frame']} / encode_scan "
+            f"{launches['encode_scan']} launches; plain calls "
+            f"{sum(plain.values())}; {pr[3]} kernel launches in all "
+            f"(torch.profiler, profiled run: wall {pr[0]:.1f} ms, device busy "
+            f"{busy:.1f} ms, idle {max(0.0, 1 - busy / pr[0]) * 100:.1f} %); "
+            f"max_memory_allocated={peak} B; PSNR-Y {psnr:.3f} dB")
+        if any(plain.values()):
+            raise AssertionError(f"frame {i} called a plain version")
+        if i and (launches["mc_frame"] != 2 or not ft["pus"]
+                  or bool(launches["encode_scan"]) != bool(ft["intra_leaves"])
+                  or launches["encode_scan"] not in (0, 2)):
+            raise AssertionError(f"P frame {i} did not reconstruct through "
+                                 "mc_frame and (on intra leaves) "
+                                 "encode_scan")
+    _, groups_p, top_p, _ = prof.profiles[-1]
+    log(f"[slice] 1080p LDB-form encode, frame {len(prof.profiles) - 1} "
+        f"under torch.profiler (CPU + CUDA activities): device ms by group "
+        f"{ {k: round(v, 3) for k, v in groups_p.items()} }; top kernels "
+        f"(ms, launches, name) {top_p[:6]}")
+    med = sorted(fps)[len(fps) // 2]
+    log(f"[slice] 1080p P-frame encode fps={med:.4f} (median of frames "
+        f"1-3: {', '.join(f'{x:.4f}' for x in fps)}; spread "
+        f"{(max(fps) - min(fps)) / med * 100:.1f} % of the median; host "
+        f"clock, the stages' sum; the whole 4-frame call, reading back each "
+        f"frame included: {wall:.2f} s); {out.stat().st_size} bytes "
+        f"written; launches over the encode {total}; card {card}")
+    zero_counters()
+    decode_equals(out, recons, dev, "1080p LDB-form stream")
+    launches_dec, plain_dec = read_counters()
+    if not launches_dec["mc_frame"] or any(plain_dec.values()):
+        raise AssertionError("the decode of the encoder's P/B stream did "
+                             "not run through the kernels")
+
+    # 2. and 3. thor_tpu's P/B streams byte for byte; the RA one
+    # synthesizes its interpolated references through kernels 3-5
+    for name, must in (("ldb_qcif", ("mc_frame",)),
+                       ("ra_qcif", ("mc_frame", "me_level", "mot_comp",
+                                    "mot_comp_uv"))):
+        fields, fr = load_frames(name)
+        got = out_dir / f"enc_{name}.bit"
+        zero_counters()     # the interpolation runs between frames
+        Encoder(enc_params(fields)).encode_sequence(fr, str(got))
+        launches, plain = read_counters()
+        plain = sum(plain.values())
+        same = got.read_bytes() == golden_path(name).read_bytes()
+        log(f"[slice] {name}: {got.stat().st_size} bytes "
+            f"{'equal' if same else 'DIFFER FROM'} thor_tpu's "
+            f"{golden_path(name).name}; launches {launches}; plain calls "
+            f"{plain}")
+        if not same or plain or not all(launches[k] for k in must):
+            raise AssertionError(f"{name}: the port's stream differs from "
+                                 f"thor_tpu's or skipped a kernel of {must}")
+    return total
 
 
 def main():
@@ -1255,6 +1402,7 @@ def main():
         CIF_INTERP_STREAMS + ("RA16_long",), dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches_enc = phase_encode(dev, card, Path(tmp))
+        launches_pb = phase_encode_pb(dev, card, Path(tmp))
 
     pi = "thor_tpu/ops/pallas_interp.py"
     meta = {
@@ -1278,6 +1426,8 @@ def main():
             "launches": (launches if name in ldb else launches_enc
                          if name == "encode_scan" else launches_ra)[name],
             "launches_ra16_path": launches_ra[name],
+            **({"launches_pb_encode": launches_pb[name]}
+               if name in ("mc_frame", "encode_scan") else {}),
             "max_abs_err": max_err[name],
             "ms": sum(x[0] for x in r), "plain_ms": sum(x[1] for x in r),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
@@ -1289,7 +1439,9 @@ def main():
         f"intra_scan over the {nframes}-frame LDB decode, the interpolation "
         f"kernels over the {nframes}-frame "
         f"RA16 decode (launches_ra16_path: those five there), encode_scan "
-        f"over the 3-frame 1080p all-intra encode; {smi_line}")
+        f"over the 3-frame 1080p all-intra encode (launches_pb_encode: "
+        f"mc_frame and encode_scan over the 4-frame 1080p LDB-form encode); "
+        f"{smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

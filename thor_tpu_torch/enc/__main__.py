@@ -2,12 +2,17 @@
 
 Usage mirrors the reference, plus --device:
     python -m thor_tpu_torch.enc -if in.yuv -of out.bit -device_encode 1 \
-        -intra_period 1 [-cf config.txt] [-rf rec.yuv] \
+        [-cf config.txt] [-rf rec.yuv] \
         [-width W -height H -n N -qp QP ...] [--device cpu|cuda]
+
+The device encoder (-device_encode 1) codes I, P and B frames: all-intra
+(-intra_period 1), low-delay (LDB: -max_num_ref, -enable_bipred) and
+random-access configurations (-num_reorder_pics, -interp_ref). The host
+mirror encoder (-device_encode 0) is not ported and is refused.
 
 Flag precedence: defaults -> config file(s) -> command line
 (enc/strings.c:340-356). Encodes on the card by default; --device cpu
-runs the scan kernel's plain PyTorch version on the CPU.
+runs the kernels' plain PyTorch versions on the CPU.
 """
 
 from __future__ import annotations

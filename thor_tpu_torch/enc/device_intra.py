@@ -183,10 +183,11 @@ def _search_size(orgY, orgU, orgV, s, W, H, fast, nmodes, qpY, qpC, lam,
     return best_mode.view(HB, WB), best_cost.view(HB, WB)
 
 
-def intra_split_decisions(host, W, H):
+def intra_split_decisions(host, W, H, return_costs=False):
     """Bottom-up split decisions (host, tiny) over fetched
     {size: (mode_map, cost_map)} numpy maps: ({size: mode_map},
-    {size: split_map})."""
+    {size: split_map}), and with return_costs the int64 cost maps
+    {size: cost_map} as a third item."""
     modes = {s: host[s][0] for s in host}
     costs = {s: np.asarray(host[s][1]).astype(np.int64) for s in host}
     split = {}
@@ -197,21 +198,31 @@ def intra_split_decisions(host, W, H):
         here = costs[s][:HB, :WB]
         split[s] = child < here
         agg = np.where(split[s], child, here)
+    if return_costs:
+        return modes, split, costs
     return modes, split
 
 
-def search_intra_frame(org_y, org_u, org_v, qp, qpC, lam, W, H, fast, nmodes,
-                       intra_quant=True):
+def search_intra_frame_maps(org_y, org_u, org_v, qp, qpC, lam, W, H, fast,
+                            nmodes, intra_quant=True):
     """The per-size mode searches on the planes' device (lam rounded to
-    float32 here), then the bottom-up split decisions on the host:
-    ({size: mode_map}, {size: split_map})."""
+    float32 here), fetched: {size: (mode_map, cost_map)} numpy maps."""
     lam32 = torch.tensor(lam, dtype=torch.float32, device=org_y.device)
     host = {}
     for s in (8, 16, 32, 64):
         m, c = _search_size(org_y, org_u, org_v, s, W, H, fast, nmodes, qp,
                             qpC, lam32, intra_quant)
         host[s] = (m.cpu().numpy(), c.cpu().numpy())
-    return intra_split_decisions(host, W, H)
+    return host
+
+
+def search_intra_frame(org_y, org_u, org_v, qp, qpC, lam, W, H, fast, nmodes,
+                       intra_quant=True):
+    """The per-size mode searches, then the bottom-up split decisions on
+    the host: ({size: mode_map}, {size: split_map})."""
+    return intra_split_decisions(search_intra_frame_maps(
+        org_y, org_u, org_v, qp, qpC, lam, W, H, fast, nmodes, intra_quant),
+        W, H)
 
 
 # ---------------------------------------------------------------------------

@@ -5,12 +5,13 @@ structure, frame typing, QP cascade, reference-list construction) and
 enc/encode_frame.c (lambda model, frame header, in-loop filters, CLPF
 decision, sliding-window references).
 
-Ported so far: the device encoder's I-frame path (device_encode=1, every
-frame an I frame: intra_period=1). The original planes, the
-reconstruction and the in-loop filters live on the encoder's device;
-block syntax, split decisions and the CLPF bits are host work. A P or B
-frame, and the host mirror encoder (device_encode=0), raise
-NotImplementedError.
+Ported: the device encoder (device_encode=1), its I frames
+(enc/device_intra) and its P and B frames (enc/device_inter), with the
+interpolated references of RA configurations (ops/interp). The original
+planes, the references, the reconstruction and the in-loop filters live
+on the encoder's device; block syntax, the split and mode decisions and
+the CLPF bits are host work. The host mirror encoder (device_encode=0)
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ from ..codec.constants import (
     PAD_C, PAD_Y, P_FRAME, TC_TABLE)
 from ..device import resolve_device
 from ..ops import kernels as K
+from ..ops.interp import interpolate_frames
+from .device_inter import (finish_inter_frame_device,
+                           measure_inter_frame_device)
 from .device_intra import encode_intra_frame_device
 
 I32 = torch.int32
@@ -223,13 +227,25 @@ class RefFrame:
         self.u = K.edge_pad(u, PAD_C)
         self.v = K.edge_pad(v, PAD_C)
 
+    @classmethod
+    def of_padded(cls, yp, up, vp, frame_num):
+        """A reference from planes that already carry the codec padding
+        (the interpolated frame's synthesis writes them so)."""
+        ref = cls.__new__(cls)
+        ref.frame_num = frame_num
+        ref.y, ref.u, ref.v = yp, up, vp
+        return ref
+
 
 class Encoder:
     """Top-level encoder (the mainenc.c loop) on `device` ("cuda" by
-    default; "cpu" runs the scan kernel's plain version). `frame_times`
-    holds one dict per encoded frame: host-clock seconds of its search,
-    scan, emit and filters stages (each ends where the host waits for the
-    device anyway) and its TU count."""
+    default; "cpu" runs the kernels' plain versions). `frame_times` holds
+    one dict per encoded frame: the host-clock seconds of its stages, each
+    ending where the host waits for the device anyway (I frames: search,
+    scan, emit, filters, with the TU count "tus"; P and B frames: me,
+    trials, intra_search, decide, second_chance, final, emit, filters,
+    with the counts "pus" of the MC and "intra_leaves" of the intra
+    scan)."""
 
     def __init__(self, params: EncoderParams, device=None):
         self.device = resolve_device(device)
@@ -286,32 +302,68 @@ class Encoder:
 
     def encode_frame(self, w: BitWriter):
         """enc/encode_frame.c:65-194."""
-        self.encode_frame_begin(w)
-        self.encode_frame_finish(w)
+        self.encode_frame_finish(w, self.encode_frame_begin(w))
 
     def encode_frame_begin(self, w: BitWriter):
-        """Lambda and frame header, then the whole encode of a device I
-        frame: search, exact scan, block syntax, deblocking and the CLPF
-        decision."""
+        """Lambda and frame header, then either the whole encode of an I
+        frame (search, exact scan, block syntax, filters; returns None) or
+        the measurement half of a P or B frame (returns its context for
+        encode_frame_finish)."""
         p = self.params
-        if self.frame_type != I_FRAME:
-            raise NotImplementedError(
-                "P and B frames of the device encoder are not ported yet; "
-                "encode all-intra (intra_period=1)")
         self.deblock_data.reset()
-        self.lambda_ = p.lambda_coeffI * SQUARED_LAMBDA_QP[self.frame_qp]
+        if self.frame_type == I_FRAME:
+            lambda_coeff = p.lambda_coeffI
+        elif self.frame_type == P_FRAME:
+            lambda_coeff = p.lambda_coeffP
+        else:
+            lambda_coeff = [p.lambda_coeffB0, p.lambda_coeffB1,
+                            p.lambda_coeffB2, p.lambda_coeffB3,
+                            ][self.b_level] if self.b_level < 4 \
+                else p.lambda_coeffB
+        self.lambda_ = lambda_coeff * SQUARED_LAMBDA_QP[self.frame_qp]
 
         w.putbits(1, int(self.frame_type != I_FRAME))
         w.putbits(8, self.frame_qp)
         w.putbits(4, self.num_intra_modes)
+        if self.frame_type != I_FRAME:
+            w.putbits(2, self.num_ref - 1)
         for r in self.ref_array:
             w.putbits(6, r + 1)
         w.putbits(16, self.frame_num)
 
         self.frame_times.append({})
         org = tuple(t.to(I32) for t in (self.org_y, self.org_u, self.org_v))
+        if self.frame_type != I_FRAME:
+            if any(self.get_ref(i) is None for i in range(self.num_ref)):
+                raise NotImplementedError(
+                    "a P/B frame whose reference is missing takes the host "
+                    "mirror encoder, which is not ported yet")
+            return measure_inter_frame_device(self, *org)
         y, u, v = encode_intra_frame_device(self, w, *org)
+        self._filters(w, y, u, v, org[0])
+        return None
 
+    def encode_frame_finish(self, w: BitWriter, ctx=None):
+        """Drain a P/B frame's measurement context (the decision walk, the
+        final reconstruction, the emit, the filters), then the
+        sliding-window reference update."""
+        if ctx is not None:
+            y, u, v = finish_inter_frame_device(self, w, ctx)
+            self._filters(w, y, u, v, ctx["org"][0])
+        self.refs = [RefFrame(self.rec_y, self.rec_u, self.rec_v,
+                              self.frame_num)] + self.refs[:-1]
+
+    def get_ref(self, ref_idx):
+        """The reference of slot ref_idx: a window frame, or the
+        interpolated frame where ref_array holds -1."""
+        r = self.ref_array[ref_idx]
+        return self.refs[r] if r >= 0 else self.interp_frame
+
+    def _filters(self, w, y, u, v, org_y):
+        """Deblocking and the CLPF decision of the unfiltered int32 planes
+        (y, u, v) from the side-info map; sets rec_y / rec_u / rec_v (uint8
+        on the device) and the frame's "filters" time."""
+        p = self.params
         t0 = time.perf_counter()
         H, W = self.height, self.width
         if p.deblocking:
@@ -325,7 +377,7 @@ class Encoder:
         if p.clpf:
             w.putbits(1, 1)
             w.putbits(1, 0)     # sb_signal: per-SB decision bits follow
-            y, u, v = self._clpf_frame(w, y, u, v, org[0])
+            y, u, v = self._clpf_frame(w, y, u, v, org_y)
         self.rec_y, self.rec_u, self.rec_v = (
             t.to(torch.uint8) for t in (y, u, v))
         if self.device.type == "cuda":
@@ -342,11 +394,6 @@ class Encoder:
             "size", "tb_split", "pb_part", "mode", "cbp_y", "mv0x", "mv0y",
             "mv1x", "mv1y")})
         return K.unpack_ddp(torch.from_numpy(ddp).to(self.device))
-
-    def encode_frame_finish(self, w: BitWriter):
-        """The sliding-window reference update."""
-        self.refs = [RefFrame(self.rec_y, self.rec_u, self.rec_v,
-                              self.frame_num)] + self.refs[:-1]
 
     def _clpf_frame(self, w: BitWriter, y, u, v, org_y):
         """clpf_frame with the encoder's decision (common/common_frame.c:
@@ -681,10 +728,13 @@ class Encoder:
             self.num_intra_modes = MAX_NUM_INTRA_MODES
 
     def _synth_interp(self, r1, r2, ratio, pos):
-        """Interpolated-reference synthesis for a B frame."""
-        raise NotImplementedError(
-            "interpolated references belong to the device encoder's P/B "
-            "frames, which are not ported yet")
+        """The interpolated reference of a B frame, synthesized from window
+        frames r1 and r2 on the encoder's device exactly as the decoder
+        resynthesizes it (common/temporal_interp.c:972-1053; on a card the
+        ME and synthesis kernels of ops/interp)."""
+        out = interpolate_frames(self.refs[r1], self.refs[r2], ratio, pos)
+        self.interp_frame = RefFrame.of_padded(out[3], out[4], out[5],
+                                               self.frame_num)
 
 def _log2i(n: int) -> int:
     return n.bit_length() - 1

@@ -2,9 +2,11 @@
 
 Counterpart of thor_tpu/ops/coeff_bits.py: a vectorized mirror of
 write_coeff's two-state level/run automaton (enc/write_bits.c:110-253)
-and the quote_vlc tables it uses (enc/putvlc.c:133-229). One loop walks
-the zigzag positions while all blocks advance through the automaton side
-by side. Plain tensor ops, as the JAX package runs it as XLA ops.
+and the quote_vlc tables it uses (enc/putvlc.c:133-229). thor_tpu walks
+the zigzag positions in a loop, all blocks side by side; here the state
+at every position comes from cumulative maxima over the positions, so one
+call is a few dozen tensor ops whatever the block size. Plain tensor ops,
+as the JAX package runs it as XLA ops.
 """
 
 from __future__ import annotations
@@ -69,10 +71,29 @@ def _run_code_bits(cn, chroma: bool, small: bool):
     return torch.where(cn == 0, 2, _qv2(cn + 1))
 
 
+def _last_before(ev):
+    """[n, P] bool events -> [n, P + 1] int64: for each position p
+    (0..P), the last index q < p with ev[q], or -1."""
+    n, P = ev.shape
+    idx = torch.where(ev, torch.arange(P, device=ev.device), -1)
+    last = torch.cummax(idx, dim=1).values
+    return torch.cat([torch.full((n, 1), -1, dtype=last.dtype,
+                                 device=ev.device), last], dim=1)
+
+
 def coeff_bits_batch(q, size: int, intra: bool, chroma: bool):
     """Exact write_coeff bit count of [N, size, size] quantized blocks ->
     [N] int32. Meaningful only for a block with a nonzero coefficient (the
-    stream never carries an all-zero coefficient block)."""
+    stream never carries an all-zero coefficient block).
+
+    The automaton's state at each zigzag position is a function of the
+    levels before it, each part set by the last position of one kind:
+    level mode by the last level that is not 1 (0 leaves it, above 1
+    enters it; 1 keeps the mode), the run by the last position that was in
+    level mode or nonzero, maxrun by the last start of a run span, the
+    luma VLC table by the last level-mode level. So every position's state,
+    and its bits, come from a few cumulative maxima over all positions at
+    once, with no loop over them."""
     qsize = min(size, 16)
     Nc = qsize * qsize
     dev = q.device
@@ -88,47 +109,51 @@ def coeff_bits_batch(q, size: int, intra: bool, chroma: bool):
     pidx = torch.arange(Nc, dtype=I32, device=dev)
     last_pos = torch.clamp(
         torch.where(sco != 0, pidx[None, :], -1).amax(dim=1), min=0)
-    scoT = sco.t().contiguous()                   # [Nc, N]: a row per step
+    lv = sco.abs()
+    is_z = lv == 0
+    ar = torch.arange(Nc + 1, device=dev)
 
-    bits = torch.zeros(n, dtype=I32, device=dev)
-    lm = torch.ones(n, dtype=torch.bool, device=dev)       # level mode
-    vlc = torch.full((n,), bool(intra and not chroma), dtype=torch.bool,
-                     device=dev)
-    run = torch.zeros(n, dtype=I32, device=dev)
-    maxrun = torch.zeros(n, dtype=I32, device=dev)
+    def at(a, where_):
+        """a[row, where_] for where_ >= 0 (a: [n, Nc])."""
+        return a.gather(1, torch.clamp(where_, min=0))
 
-    # positions past every block's last coefficient change no state
-    steps = int(last_pos.max()) + 1 if n else 0
-    for p in range(steps):
-        v = scoT[p]
-        lv = v.abs()
-        active = last_pos >= p
-        is_z = lv == 0
-        # level mode
-        lv_bits = torch.where(vlc, _qv1(lv), _qv0(lv)) + (lv > 0)
-        # run mode
-        cn = _find_code(run, lv, maxrun, chroma)
-        sgn = (v < 0).to(I32)
-        lvl_bits = torch.where(
-            lv > 1, _qv0(2 * torch.clamp(lv - 2, min=0) + sgn), 1)
-        run_bits = _run_code_bits(cn, chroma, small) + lvl_bits
-        nbits = torch.where(lm, lv_bits, torch.where(is_z, 0, run_bits))
-        # state updates. A run span starts when level mode emitted a zero
-        # or run mode coded a level-1 coefficient: maxrun = Nc - (p+1) - 1
-        new_span = (lm & is_z) | (~lm & ~is_z & (lv <= 1))
-        lm2 = torch.where(lm, lv > 0, lv > 1)
-        run2 = torch.where(lm | ~is_z, 0, run + 1)
-        maxrun2 = torch.where(new_span, Nc - p - 2, maxrun)
-        bits = bits + torch.where(active, nbits, 0)
-        if not chroma:
-            vlc = torch.where(active & lm, lv > 3, vlc)
-        lm = torch.where(active, lm2, lm)
-        run = torch.where(active, run2, run)
-        maxrun = torch.where(active, maxrun2, maxrun)
+    # level mode at positions 0..Nc (True before any level other than 1)
+    ev = _last_before(lv != 1)
+    lm_all = (ev < 0) | (at(lv, ev) > 1)
+    lm = lm_all[:, :Nc]
+    # the run: zeros coded in run mode since the last reset
+    reset = _last_before(lm | ~is_z)[:, :Nc]
+    run = (ar[None, :Nc] - 1 - reset).to(I32)
+    # maxrun: Nc - q - 2 of the last run-span start q, else 0
+    new_span = (lm & is_z) | (~lm & ~is_z & (lv <= 1))
+    span = _last_before(new_span)[:, :Nc]
+    maxrun = torch.where(span >= 0, Nc - span - 2, 0).to(I32)
+    # the luma VLC table of level mode: set by the last level-mode level
+    vlc0 = bool(intra and not chroma)
+    if chroma:
+        vlc_all = torch.full((n, Nc + 1), vlc0, dtype=torch.bool, device=dev)
+    else:
+        lmq = _last_before(lm)
+        vlc_all = torch.where(lmq < 0, vlc0, at(lv, lmq) > 3)
+    vlc = vlc_all[:, :Nc]
 
-    # tail zero in level mode + EOB (enc/write_bits.c:231-252)
-    tail = lm & (last_pos + 1 < Nc)
-    bits = bits + torch.where(tail, torch.where(vlc, 2, 1), 0)
+    lv_bits = torch.where(vlc, _qv1(lv), _qv0(lv)) + (lv > 0)
+    cn = _find_code(run, lv, maxrun, chroma)
+    sgn = (sco < 0).to(I32)
+    lvl_bits = torch.where(
+        lv > 1, _qv0(2 * torch.clamp(lv - 2, min=0) + sgn), 1)
+    run_bits = _run_code_bits(cn, chroma, small) + lvl_bits
+    nbits = torch.where(lm, lv_bits, torch.where(is_z, 0, run_bits))
+    active = pidx[None, :] <= last_pos[:, None]
+    bits = torch.where(active, nbits, 0).sum(dim=1, dtype=I32)
+
+    # tail zero in level mode + EOB (enc/write_bits.c:231-252), from the
+    # state after the last coefficient
+    end = (last_pos + 1).long()[:, None]
+    lm_end = lm_all.gather(1, end)[:, 0]
+    vlc_end = vlc_all.gather(1, end)[:, 0]
+    tail = lm_end & (last_pos + 1 < Nc)
+    bits = bits + torch.where(tail, torch.where(vlc_end, 2, 1), 0)
     pos_after = last_pos + 1 + tail.to(I32)
     bits = bits + torch.where(pos_after < Nc, eob_bits, 0)
     if chroma:

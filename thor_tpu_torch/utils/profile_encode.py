@@ -1,17 +1,20 @@
-"""Where an all-intra device encode's time goes on the card.
+"""Where a device encode's time goes on the card.
 
-    python -m thor_tpu_torch.utils.profile_encode [--json out]
+    python -m thor_tpu_torch.utils.profile_encode [--pb] [--json out]
 
-Encodes the top-left 1920x1080 crop of testdata/test_4k.yuv, every frame
-an I frame (QP 32, 10 intra modes, deblocking, CLPF, block contexts):
-three frames on the host clock for the stage times (search, scan, emit,
-filters; Encoder.frame_times), then one frame under torch.profiler (CPU +
-CUDA activities) for the device time by kernel, grouped into the scan
-kernel, host<->device copies and PyTorch's own kernels (the search and the
-filters), the number of kernel launches, and the device's idle share of
-that frame's wall time. The profiler slows the host down, so its wall
-time is longer than the unprofiled frames'. Prints one JSON object. Needs
-a CUDA device; run it from the repo's root.
+Encodes the top-left 1920x1080 crop of testdata/test_4k.yuv (QP 32,
+deblocking, CLPF, block contexts). By default every frame is an I frame
+(10 intra modes): three frames on the host clock for the stage times
+(Encoder.frame_times), then one frame under torch.profiler. With --pb the
+sequence is the low-delay B form of LDB_PB below (I P P P, two references
+from frame 2, bipred, encoder_speed 0): four frames on the host clock,
+then the same four again with each frame under a profiler of its own, and
+the last P frame's profile is the one reported. A profile holds the device
+time by kernel, grouped into the port's kernels, host<->device copies and
+PyTorch's own kernels, the number of kernel launches, and the device's
+idle share of that frame's wall time. The profiler slows the host down,
+so its wall time is longer than the unprofiled frames'. Prints one JSON
+object. Needs a CUDA device; run it from the repo's root.
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ from .profile_decode import profile_run
 
 INPUT = ("testdata/test_4k.yuv", 3840, 2160)
 W, H = 1920, 1080
+INTRA = dict(intra_period=1, intra_rdo=1)
+# the sequence header of LDB_medium_complexity_1080.bit (two references,
+# bipred, deblocking, CLPF, block contexts, no tb / pb split, no delta-QP)
+LDB_PB = dict(max_num_ref=2, enable_bipred=1, encoder_speed=0)
 
 
 def crop_frames(n):
@@ -37,36 +44,61 @@ def crop_frames(n):
             for y, u, v in read_yuv_frames(path, sw, sh, n)]
 
 
-def encode(frames, out_path):
-    enc = Encoder(EncoderParams(
-        width=W, height=H, qp=32, intra_period=1, num_frames=len(frames),
-        device_encode=1, intra_rdo=1, use_block_contexts=1))
-    enc.encode_sequence(frames, out_path)
-    return enc.frame_times
+def params(n, form):
+    return EncoderParams(width=W, height=H, qp=32, num_frames=n,
+                         device_encode=1, deblocking=1, clpf=1,
+                         use_block_contexts=1, **form)
+
+
+class ProfiledEncoder(Encoder):
+    """An Encoder that runs every frame under a torch.profiler of its own
+    and keeps, per frame, profile_run's (wall ms, device ms by group, top
+    kernels, launches) in `profiles`."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.profiles = []
+
+    def encode_frame(self, w):
+        _, wall, groups, top, launches = profile_run(
+            lambda: super(ProfiledEncoder, self).encode_frame(w))
+        self.profiles.append((wall, groups, top, launches))
+
+
+def summary(wall, groups, top, launches):
+    busy = sum(groups.values())
+    return {"wall_ms": wall, "kernel_launches": launches,
+            "device_ms_by_group": groups, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / wall),
+            "top_kernels_ms_count_name": top}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--pb", action="store_true",
+                    help="the LDB-form I P P P encode, profiling a P frame")
     ap.add_argument("--json", default=None, help="also write the result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_encode needs a CUDA device")
-    frames = crop_frames(3)
+    form = LDB_PB if args.pb else INTRA
+    n = 4 if args.pb else 3
+    frames = crop_frames(n)
     with tempfile.TemporaryDirectory() as tmp:
         out_path = str(Path(tmp) / "o.bit")
-        encode(frames[:1], out_path)                           # warm
-        times = encode(frames, out_path)
-        _, wall, groups, top, launches = profile_run(
-            lambda: encode(frames[:1], out_path))
-    busy = sum(groups.values())
+        Encoder(params(1, form)).encode_sequence(frames[:1], out_path)  # warm
+        enc = Encoder(params(n, form))
+        enc.encode_sequence(frames, out_path)
+        prof = ProfiledEncoder(params(n if args.pb else 1, form))
+        prof.encode_sequence(frames if args.pb else frames[:1], out_path)
     out = {"card": torch.cuda.get_device_name(0),
+           "form": "LDB I P P P" if args.pb else "all-intra",
            "stage_ms_per_frame_unprofiled": [
-               {k: (v * 1e3 if k != "tus" else v) for k, v in t.items()}
-               for t in times],
-           "profiled_frames": 1, "wall_ms": wall, "kernel_launches": launches,
-           "device_ms_by_group": groups, "device_busy_ms": busy,
-           "device_idle_share": max(0.0, 1 - busy / wall),
-           "top_kernels_ms_count_name": top}
+               {k: (v * 1e3 if isinstance(v, float) else v)
+                for k, v in t.items()} for t in enc.frame_times],
+           "profiled_frame": len(prof.profiles) - 1,
+           "launches_per_frame_profiled": [p[3] for p in prof.profiles],
+           **summary(*prof.profiles[-1])}
     s = json.dumps(out)
     if args.json:
         with open(args.json, "w") as f:
