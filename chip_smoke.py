@@ -50,9 +50,21 @@ Phases (any failure exits nonzero):
      frame under torch.profiler (kernel launches, device busy and idle
      share), the P-frame fps, and the decode of the stream back to the
      reconstruction; the thor_tpu P/B streams ldb_qcif and ra_qcif byte for
-     byte, the RA one through kernels 3-5 on its interpolated references;
+     byte, the RA one through kernels 3-5 on its interpolated references.
+     Then the host mirror encoder (device_encode=0: the block search in
+     numpy on the host, the filters and references on the card): the four
+     thor_tpu mirror streams (testdata/torch_enc_host_*.bit: all-intra
+     CIF, LDB QCIF and CIF, RA QCIF) byte for byte, each with the counters
+     set to 0 just before and read just after (kernels 3-5 on the RA one,
+     no other kernel, no plain call) and decoded back to the encoder's
+     reconstruction through kernels 1-5 (counted the same way); the
+     search and filter seconds of every frame and the CIF fps; one CIF P
+     frame under torch.profiler (device busy and idle share); a mirror
+     encode (host_ldb_qcif) and a device encode (ldb_qcif) split at a
+     checkpoint after frame 1 and resumed, equal to their goldens;
   5. a {"kernels": [...]} JSON line (six kernels; mc_frame and encode_scan
-     with their launches in the P/B encode);
+     with their launches in the P/B encode; each with its launches over
+     the mirror encodes);
   6. last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or thor_tpu. Without a CUDA device it exits 1 and
 prints no result.
@@ -1235,7 +1247,7 @@ def phase_encode(dev, card, out_dir):
     # byte for byte (phase_encode_pb holds the P/B ones)
     for name in CASES:
         fields, fr = load_frames(name)
-        if fields.get("intra_period") != 1:
+        if fields.get("intra_period") != 1 or not fields["device_encode"]:
             continue
         got = out_dir / f"enc_{name}.bit"
         Encoder(enc_params(fields)).encode_sequence(fr, str(got))
@@ -1378,6 +1390,139 @@ def phase_encode_pb(dev, card, out_dir):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the host mirror encoder (device_encode=0)
+# ---------------------------------------------------------------------------
+
+SYNTH = ("me_level", "mot_comp", "mot_comp_uv")
+
+
+def counted_gate(path, recons, dev, what, must):
+    """The decode gate with every counter set to 0 just before and read
+    just after: the port's decoder reads `path` back to `recons` through
+    the kernels in `must` and no plain version."""
+    zero_counters()
+    decode_equals(path, recons, dev, what)
+    launches, plain = read_counters()
+    if not all(launches[k] for k in must) or any(plain.values()):
+        raise AssertionError(f"{what}: the decode did not run through the "
+                             f"kernels {must} alone")
+    return launches
+
+
+def split_and_resume(name, out_dir):
+    """Encode case `name` in two parts, a snapshot after frame 1 and a
+    fresh Encoder resuming from it; the stream must be the golden."""
+    from thor_tpu_torch.enc.encoder import Encoder
+    from tools.gen_torch_enc_goldens import golden_path, load_frames
+    fields, fr = load_frames(name)
+    out, ckpt = out_dir / f"split_{name}.bit", out_dir / f"{name}.npz"
+    t0 = time.perf_counter()
+    Encoder(enc_params(dict(fields, num_frames=2))).encode_sequence(
+        fr, str(out), checkpoint_path=str(ckpt), checkpoint_every=2)
+    Encoder(enc_params(fields)).encode_sequence(fr, str(out),
+                                                resume_path=str(ckpt))
+    same = out.read_bytes() == golden_path(name).read_bytes()
+    log(f"[slice] {name} split after frame 1 and resumed from "
+        f"{ckpt.stat().st_size} B of snapshot: {out.stat().st_size} bytes "
+        f"{'equal' if same else 'DIFFER FROM'} {golden_path(name).name} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise AssertionError(f"{name}: the resumed stream differs")
+
+
+def phase_encode_host(dev, card, out_dir):
+    """The host mirror encoder: the block search in numpy on the host, the
+    filters, the reference window and the interpolated reference on the
+    card. Each thor_tpu mirror golden byte for byte, with every counter
+    read around each encode (the RA case synthesizes its interpolated
+    references through kernels 3-5) and around its decode gate; the
+    stage times of every frame, the CIF P-frame fps, one profiled CIF
+    frame; a split and resumed encode of the mirror and of the device
+    encoder. Returns the launches over the four mirror encodes by
+    kernel."""
+    from thor_tpu_torch.enc.encoder import Encoder
+    from thor_tpu_torch.utils.profile_decode import profile_run
+    from tools.gen_torch_enc_goldens import CASES, golden_path, load_frames
+
+    t_phase = time.perf_counter()
+    total = {}
+    for name in [n for n, c in CASES.items() if not c[2]["device_encode"]]:
+        fields, fr = load_frames(name)
+        got = out_dir / f"enc_{name}.bit"
+        zero_counters()     # the interpolation runs between frames
+        enc = Encoder(enc_params(fields))
+        t0 = time.perf_counter()
+        recons = enc.encode_sequence(fr, str(got))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = read_counters()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        same = got.read_bytes() == golden_path(name).read_bytes()
+        interp = bool(fields.get("interp_ref"))
+        log(f"[slice] host mirror {name}: {got.stat().st_size} bytes "
+            f"{'equal' if same else 'DIFFER FROM'} thor_tpu's "
+            f"{golden_path(name).name}; {len(recons)} frames in {wall:.2f} s "
+            f"(the whole call); launches {launches}; plain calls "
+            f"{sum(plain.values())}; card {card}")
+        for i, ft in enumerate(enc.frame_times):
+            log(f"[slice] host mirror {name}, coded frame {i}: search "
+                f"{ft['search']:.3f} s (host numpy), filters "
+                f"{ft['filters'] * 1e3:.2f} ms (device; each stage ends in "
+                f"a wait for the device)")
+        if name == "host_ldb_cif":
+            fps = [1.0 / (ft["search"] + ft["filters"])
+                   for ft in enc.frame_times]
+            mean = len(fps) / sum(1 / x for x in fps)
+            log(f"[slice] host mirror CIF fps={mean:.4f} over the "
+                f"{len(fps)} frames (I frame {fps[0]:.4f}, P frames "
+                f"{', '.join(f'{x:.4f}' for x in fps[1:])}: one reference, "
+                f"then two with bipred; host clock, search + filters); "
+                f"card {card}")
+        if not same or any(plain.values()) \
+                or any(launches[k] for k in launches if k not in SYNTH) \
+                or interp != all(launches[k] for k in SYNTH):
+            raise AssertionError(f"{name}: the mirror's stream differs from "
+                                 "thor_tpu's, or its kernels are not the "
+                                 "synthesis' alone, on RA only")
+        must = ("intra_scan",) + (("mc_frame",) if len(recons) > 1 else ()) \
+            + (SYNTH if interp else ())
+        counted_gate(got, recons, dev, f"host mirror {name} stream", must)
+
+    # one CIF P frame (frame 1 of host_ldb_cif) under torch.profiler
+    class OneProfiled(Encoder):
+        def encode_frame(self, w):
+            if self.frame_num != 1:
+                return super().encode_frame(w)
+            self.profile = profile_run(lambda: Encoder.encode_frame(self, w))
+
+    fields, fr = load_frames("host_ldb_cif")
+    got = out_dir / "enc_host_ldb_cif_prof.bit"
+    prof = OneProfiled(enc_params(dict(fields, num_frames=2)))
+    prof.encode_sequence(fr, str(got))
+    _, wall, groups, top, n_launch = prof.profile
+    busy = sum(groups.values())
+    prefix = golden_path("host_ldb_cif").read_bytes().startswith(
+        got.read_bytes())
+    log(f"[slice] host mirror CIF P frame 1 under torch.profiler (CPU + "
+        f"CUDA activities): wall {wall:.1f} ms, device busy {busy:.3f} ms, "
+        f"idle {max(0.0, 1 - busy / wall) * 100:.3f} %; {n_launch} kernel "
+        f"launches; device ms by group "
+        f"{ {k: round(v, 3) for k, v in groups.items()} }; top kernels "
+        f"(ms, launches, name) {top[:5]}; the stream is "
+        f"{'the' if prefix else 'NOT the'} golden's first two frames; "
+        f"card {card}")
+    if not prefix:
+        raise AssertionError("the profiled mirror encode wrote other bytes")
+
+    for name in ("host_ldb_qcif", "ldb_qcif"):
+        split_and_resume(name, out_dir)
+    log(f"[slice] host mirror phase: {time.perf_counter() - t_phase:.1f} s "
+        f"in all (host clock); card {card}")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1403,6 +1548,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches_enc = phase_encode(dev, card, Path(tmp))
         launches_pb = phase_encode_pb(dev, card, Path(tmp))
+        launches_host = phase_encode_host(dev, card, Path(tmp))
 
     pi = "thor_tpu/ops/pallas_interp.py"
     meta = {
@@ -1428,6 +1574,7 @@ def main():
             "launches_ra16_path": launches_ra[name],
             **({"launches_pb_encode": launches_pb[name]}
                if name in ("mc_frame", "encode_scan") else {}),
+            "launches_host_encode": launches_host[name],
             "max_abs_err": max_err[name],
             "ms": sum(x[0] for x in r), "plain_ms": sum(x[1] for x in r),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
@@ -1440,8 +1587,9 @@ def main():
         f"kernels over the {nframes}-frame "
         f"RA16 decode (launches_ra16_path: those five there), encode_scan "
         f"over the 3-frame 1080p all-intra encode (launches_pb_encode: "
-        f"mc_frame and encode_scan over the 4-frame 1080p LDB-form encode); "
-        f"{smi_line}")
+        f"mc_frame and encode_scan over the 4-frame 1080p LDB-form encode; "
+        f"launches_host_encode: each kernel over the four host mirror "
+        f"encodes, the synthesis on host_ra_qcif); {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

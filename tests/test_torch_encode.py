@@ -36,8 +36,12 @@ except ImportError:     # a card's machine without JAX runs the gpu tests
     decode_file0 = E0 = SNR0 = Y4M0 = None  # only: pytest --noconftest -m gpu
 
 TESTDATA = Path(__file__).resolve().parent.parent / "testdata"
-INTRA_CASES = [n for n, c in CASES.items() if c[2].get("intra_period") == 1]
-PB_CASES = [n for n in CASES if n not in INTRA_CASES]
+# the device encoder's cases (tests/test_torch_enc_host.py holds the
+# host mirror's, device_encode=0)
+DEVICE_CASES = [n for n, c in CASES.items() if c[2]["device_encode"]]
+INTRA_CASES = [n for n in DEVICE_CASES
+               if CASES[n][2].get("intra_period") == 1]
+PB_CASES = [n for n in DEVICE_CASES if n not in INTRA_CASES]
 
 
 def _same_frames(a, b):
@@ -167,13 +171,18 @@ def test_setup_frame_matches_thor_tpu():
 
 
 def test_unported_paths_raise():
-    d = dict(width=64, height=64, num_frames=2)
-    with pytest.raises(NotImplementedError, match="device_encode=0"):
-        E1.Encoder(E1.EncoderParams(**d), device="cpu")
+    """What the port refuses: the device encoder a size that is not a
+    multiple of 8 or holds no whole superblock; the host mirror a size
+    that is not a multiple of 8, where thor_tpu's mirror fails."""
     for w_, h_ in ((60, 64), (88, 40)):   # not 8-aligned; no whole superblock
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="device encoder"):
             E1.Encoder(E1.EncoderParams(width=w_, height=h_,
                                         device_encode=1), device="cpu")
+    for w_, h_ in ((172, 144), (176, 140)):
+        with pytest.raises(ValueError, match="deblocking"):
+            E1.Encoder(E1.EncoderParams(width=w_, height=h_), device="cpu")
+    assert E1.Encoder(E1.EncoderParams(width=88, height=40),
+                      device="cpu").mirror.mvcand == {}
 
 
 @pytest.fixture

@@ -24,7 +24,7 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "thor_tpu"
              or m.startswith("thor_tpu."))
-print(len(names), "modules")
+print(len(names), "modules", *names)
 assert not bad, bad
 """
 
@@ -33,7 +33,11 @@ def test_port_imports_no_jax_and_no_thor_tpu():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 34       # the enc package included
+    out = r.stdout.split()
+    assert int(out[0]) >= 43       # the enc package and host mirror included
+    assert {"thor_tpu_torch.enc.host", "thor_tpu_torch.enc.inter",
+            "thor_tpu_torch.enc.quant", "thor_tpu_torch.ops.np_kernels",
+            "thor_tpu_torch.utils.checkpoint"} <= set(out)
 
 
 def test_entry_points_raise_without_a_card(tmp_path):
@@ -45,6 +49,8 @@ def test_entry_points_raise_without_a_card(tmp_path):
         Decoder()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Encoder(EncoderParams(width=64, height=64, device_encode=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Encoder(EncoderParams(width=64, height=64))     # the host mirror
     cfg = tmp_path / "enc.cfg"
     cfg.write_text("-device_encode 1 -intra_period 1\n")
     with pytest.raises(RuntimeError, match="no CUDA device"):

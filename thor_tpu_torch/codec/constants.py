@@ -12,6 +12,16 @@ MAX_REORDER_BUFFER = 32
 PAD_Y = 96          # luma reference padding (PADDING_Y)
 PAD_C = 48
 
+# --- Lambda: lambda_coeff * squared_lambda_QP[qp] (enc/encode_frame.c:37-46)
+SQUARED_LAMBDA_QP = [
+    0.0382, 0.0485, 0.0615, 0.0781, 0.0990, 0.1257, 0.1595, 0.2023, 0.2567,
+    0.3257, 0.4132, 0.5243, 0.6652, 0.8440, 1.0709, 1.3588, 1.7240, 2.1874,
+    2.7754, 3.5214, 4.4679, 5.6688, 7.1926, 9.1259, 11.5789, 14.6912,
+    18.6402, 23.6505, 30.0076, 38.0735, 48.3075, 61.2922, 77.7672, 98.6706,
+    125.1926, 158.8437, 201.5399, 255.7126, 324.4467, 411.6560, 522.3067,
+    662.6996, 840.8294, 1066.8393, 1353.5994, 1717.4389, 2179.0763,
+    2764.7991, 3507.9607, 4450.8797, 5647.2498, 7165.1970]
+
 # --- Chroma QP map (common/common_block.c:78-83) ---
 CHROMA_QP = np.array([
     0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16,

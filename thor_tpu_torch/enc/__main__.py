@@ -1,14 +1,18 @@
 """Thorenc-equivalent CLI (enc/mainenc.c:73-660, enc/strings.c).
 
 Usage mirrors the reference, plus --device:
-    python -m thor_tpu_torch.enc -if in.yuv -of out.bit -device_encode 1 \
-        [-cf config.txt] [-rf rec.yuv] \
+    python -m thor_tpu_torch.enc -if in.yuv -of out.bit \
+        [-cf config.txt] [-rf rec.yuv] [-device_encode 0|1] \
         [-width W -height H -n N -qp QP ...] [--device cpu|cuda]
 
-The device encoder (-device_encode 1) codes I, P and B frames: all-intra
+-device_encode 0 (the default, as in python -m thor_tpu.enc) runs the host
+mirror of the reference RD search: the block search in numpy on the host,
+the in-loop filters, the reference window and the interpolated reference
+on the device; it needs a width and a height that are multiples of 8.
+-device_encode 1 runs the device encoder: I, P and B frames, all-intra
 (-intra_period 1), low-delay (LDB: -max_num_ref, -enable_bipred) and
-random-access configurations (-num_reorder_pics, -interp_ref). The host
-mirror encoder (-device_encode 0) is not ported and is refused.
+random-access configurations (-num_reorder_pics, -interp_ref), at sizes
+that are multiples of 8 and hold a 64x64 superblock.
 
 Flag precedence: defaults -> config file(s) -> command line
 (enc/strings.c:340-356). Encodes on the card by default; --device cpu

@@ -1,17 +1,20 @@
-"""Sequence and frame level of the device encoder.
+"""Sequence and frame level of the encoder.
 
 Counterpart of thor_tpu/enc/encoder.py. Mirrors enc/mainenc.c (GOP
 structure, frame typing, QP cascade, reference-list construction) and
 enc/encode_frame.c (lambda model, frame header, in-loop filters, CLPF
-decision, sliding-window references).
+decision, sliding-window references), with encoder checkpoints
+(utils/checkpoint.py) in the sequence loop.
 
-Ported: the device encoder (device_encode=1), its I frames
-(enc/device_intra) and its P and B frames (enc/device_inter), with the
-interpolated references of RA configurations (ops/interp). The original
-planes, the references, the reconstruction and the in-loop filters live
-on the encoder's device; block syntax, the split and mode decisions and
-the CLPF bits are host work. The host mirror encoder (device_encode=0)
-raises NotImplementedError.
+Two encoders share it, as in thor_tpu. The host mirror encoder
+(device_encode=0, the default) runs the reference RD search block by
+block in numpy on the host (enc/host.py, enc/block.py). The device
+encoder (device_encode=1) codes I frames (enc/device_intra) and P and B
+frames (enc/device_inter) on the encoder's device; a P or B frame whose
+reference is missing takes the mirror. Either way the references, the
+interpolated reference of RA configurations (ops/interp), the
+reconstruction and the in-loop filters live on the encoder's device;
+block syntax, the decisions and the CLPF bits are host work.
 """
 
 from __future__ import annotations
@@ -28,25 +31,17 @@ from ..codec.blockdata import DeblockData
 from ..codec.constants import (
     BETA_TABLE, B_FRAME, CHROMA_QP, I_FRAME, MAX_BLOCK_SIZE,
     MAX_NUM_INTRA_MODES, MAX_REF_FRAMES, MAX_REORDER_BUFFER, MODE_BIPRED,
-    PAD_C, PAD_Y, P_FRAME, TC_TABLE)
+    PAD_C, PAD_Y, P_FRAME, SQUARED_LAMBDA_QP, TC_TABLE)
 from ..device import resolve_device
 from ..ops import kernels as K
 from ..ops.interp import interpolate_frames
+from ..utils.checkpoint import load_encoder_state, save_encoder_state
 from .device_inter import (finish_inter_frame_device,
                            measure_inter_frame_device)
 from .device_intra import encode_intra_frame_device
+from .host import HostMirror, HostRef
 
 I32 = torch.int32
-
-# lambda = lambda_coeff * squared_lambda_QP[qp] (enc/encode_frame.c:37-46)
-SQUARED_LAMBDA_QP = [
-    0.0382, 0.0485, 0.0615, 0.0781, 0.0990, 0.1257, 0.1595, 0.2023, 0.2567,
-    0.3257, 0.4132, 0.5243, 0.6652, 0.8440, 1.0709, 1.3588, 1.7240, 2.1874,
-    2.7754, 3.5214, 4.4679, 5.6688, 7.1926, 9.1259, 11.5789, 14.6912,
-    18.6402, 23.6505, 30.0076, 38.0735, 48.3075, 61.2922, 77.7672, 98.6706,
-    125.1926, 158.8437, 201.5399, 255.7126, 324.4467, 411.6560, 522.3067,
-    662.6996, 840.8294, 1066.8393, 1353.5994, 1717.4389, 2179.0763,
-    2764.7991, 3507.9607, 4450.8797, 5647.2498, 7165.1970]
 
 
 @dataclass
@@ -226,38 +221,53 @@ class RefFrame:
         self.y = K.edge_pad(y, PAD_Y)
         self.u = K.edge_pad(u, PAD_C)
         self.v = K.edge_pad(v, PAD_C)
+        self._host = None
 
     @classmethod
-    def of_padded(cls, yp, up, vp, frame_num):
+    def of_padded(cls, yp, up, vp, frame_num, host=None):
         """A reference from planes that already carry the codec padding
-        (the interpolated frame's synthesis writes them so)."""
+        (the interpolated frame's synthesis writes them so; a checkpoint
+        holds them so, and passes its numpy planes as the host copy)."""
         ref = cls.__new__(cls)
         ref.frame_num = frame_num
         ref.y, ref.u, ref.v = yp, up, vp
+        ref._host = host
         return ref
+
+    def host(self):
+        """The host mirror's copy of the padded planes (enc/host.HostRef),
+        copied from the device on the first call."""
+        if self._host is None:
+            self._host = HostRef(*(t.cpu().numpy()
+                                   for t in (self.y, self.u, self.v)),
+                                 self.frame_num)
+        return self._host
 
 
 class Encoder:
     """Top-level encoder (the mainenc.c loop) on `device` ("cuda" by
     default; "cpu" runs the kernels' plain versions). `frame_times` holds
     one dict per encoded frame: the host-clock seconds of its stages, each
-    ending where the host waits for the device anyway (I frames: search,
-    scan, emit, filters, with the TU count "tus"; P and B frames: me,
-    trials, intra_search, decide, second_chance, final, emit, filters,
-    with the counts "pus" of the MC and "intra_leaves" of the intra
-    scan)."""
+    ending where the host waits for the device anyway (host mirror
+    frames: search, filters; device I frames: search, scan, emit,
+    filters, with the TU count "tus"; device P and B frames: me, trials,
+    intra_search, decide, second_chance, final, emit, filters, with the
+    counts "pus" of the MC and "intra_leaves" of the intra scan)."""
 
     def __init__(self, params: EncoderParams, device=None):
         self.device = resolve_device(device)
-        if not params.device_encode:
-            raise NotImplementedError(
-                "the host mirror encoder (device_encode=0) is not ported "
-                "yet; run with device_encode=1")
-        if params.width % 8 or params.height % 8 \
-                or min(params.width, params.height) < MAX_BLOCK_SIZE:
-            raise ValueError("the device encoder needs a width and a height "
-                             "that are multiples of 8 and hold a whole "
-                             "64x64 superblock")
+        if params.device_encode:
+            if params.width % 8 or params.height % 8 \
+                    or min(params.width, params.height) < MAX_BLOCK_SIZE:
+                raise ValueError("the device encoder needs a width and a "
+                                 "height that are multiples of 8 and hold a "
+                                 "whole 64x64 superblock")
+        elif params.width % 8 or params.height % 8:
+            raise ValueError("the host mirror encoder needs a width and a "
+                             "height that are multiples of 8: thor_tpu's "
+                             "mirror, the reference it is held to, fails "
+                             "in its luma deblocking on other sizes "
+                             "(thor_tpu/ops/np_kernels.py:376)")
         self.params = params
         self.width = params.width
         self.height = params.height
@@ -285,6 +295,7 @@ class Encoder:
         # reconstruction
         self.rec_y = self.rec_u = self.rec_v = None
         self.org_y = self.org_u = self.org_v = None
+        self.mirror = HostMirror(self)
 
     def store_deblock_data(self, binfo):
         """copy_deblock_data (enc/encode_block.c) on final encode."""
@@ -333,13 +344,18 @@ class Encoder:
 
         self.frame_times.append({})
         org = tuple(t.to(I32) for t in (self.org_y, self.org_u, self.org_v))
-        if self.frame_type != I_FRAME:
-            if any(self.get_ref(i) is None for i in range(self.num_ref)):
-                raise NotImplementedError(
-                    "a P/B frame whose reference is missing takes the host "
-                    "mirror encoder, which is not ported yet")
+        # thor_tpu/enc/encoder.py:608-613; __init__'s size check covers
+        # the rest of its rule
+        if p.device_encode and self.frame_type == I_FRAME:
+            y, u, v = encode_intra_frame_device(self, w, *org)
+        elif p.device_encode and all(self.get_ref(i) is not None
+                                     for i in range(self.num_ref)):
             return measure_inter_frame_device(self, *org)
-        y, u, v = encode_intra_frame_device(self, w, *org)
+        else:
+            t0 = time.perf_counter()
+            y, u, v = (torch.from_numpy(a).to(self.device, I32)
+                       for a in self.mirror.encode_frame(w))
+            self.frame_times[-1]["search"] = time.perf_counter() - t0
         self._filters(w, y, u, v, org[0])
         return None
 
@@ -352,6 +368,8 @@ class Encoder:
             self._filters(w, y, u, v, ctx["org"][0])
         self.refs = [RefFrame(self.rec_y, self.rec_u, self.rec_v,
                               self.frame_num)] + self.refs[:-1]
+        if not self.params.device_encode:
+            self.refs[0].host()     # the mirror reads every reference
 
     def get_ref(self, ref_idx):
         """The reference of slot ref_idx: a window frame, or the
@@ -459,7 +477,10 @@ class Encoder:
 
     # --- sequence level ---
 
-    def encode_sequence(self, frames, out_path: str):
+    def encode_sequence(self, frames, out_path: str,
+                        checkpoint_path: str = None,
+                        checkpoint_every: int = 0,
+                        resume_path: str = None):
         """Full sequence loop (enc/mainenc.c:214-604): sub-GOP reorder
         (dyadic or sequential), frame typing, QP cascade, reference-list
         construction (LDB sliding window / dyadic RA / non-dyadic HDB
@@ -469,7 +490,15 @@ class Encoder:
 
         frames: full input clip as a list of (y, u, v) uint8 numpy planes
         (display order). Returns the reconstructed frames in display
-        order, as numpy planes."""
+        order, as numpy planes.
+
+        checkpoint_path + checkpoint_every=N: snapshot the reference
+        window and the loop counters every N encoded frames, at sub-GOP
+        boundaries (utils/checkpoint.save_encoder_state, thor_tpu's file
+        format). resume_path: restore such a snapshot and continue; the
+        stream is truncated to the recorded byte offset and appended to,
+        byte-identical to an uninterrupted encode, and the return value
+        covers only the newly encoded frames."""
         p = self.params
         frames = list(frames)
         input_total = len(frames)
@@ -477,33 +506,46 @@ class Encoder:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
 
-        # Sequence header (enc/mainenc.c:195-212)
-        w.putbits(16, self.width)
-        w.putbits(16, self.height)
-        w.putbits(1, p.enable_pb_split)
-        w.putbits(1, p.enable_tb_split)
-        w.putbits(2, p.max_num_ref - 1)
-        w.putbits(1, p.interp_ref)
-        w.putbits(3, p.max_delta_qp)
-        w.putbits(1, p.deblocking)
-        w.putbits(1, p.clpf)
-        w.putbits(1, p.use_block_contexts)
-        w.putbits(1, p.enable_bipred)
-
-        sub_gop = max(1, p.num_reorder_pics + 1)
+        if resume_path is not None:
+            loop = load_encoder_state(self, resume_path)
+            out = open(out_path, "r+b")
+            out.truncate(loop["stream_bytes"])
+            out.seek(loop["stream_bytes"])
+            sub_gop = loop["sub_gop"]
+            p.num_reorder_pics = loop["num_reorder_pics"]
+            p.HQperiod = loop["HQperiod"]
+            num_encoded = loop["num_encoded"]
+            last_PorI = loop["last_PorI"]
+            self.last_intra_frame_num = loop["last_intra_frame_num"]
+            frame_num0 = loop["frame_num0"]
+        else:
+            out = open(out_path, "wb")
+            # Sequence header (enc/mainenc.c:195-212)
+            w.putbits(16, self.width)
+            w.putbits(16, self.height)
+            w.putbits(1, p.enable_pb_split)
+            w.putbits(1, p.enable_tb_split)
+            w.putbits(2, p.max_num_ref - 1)
+            w.putbits(1, p.interp_ref)
+            w.putbits(3, p.max_delta_qp)
+            w.putbits(1, p.deblocking)
+            w.putbits(1, p.clpf)
+            w.putbits(1, p.use_block_contexts)
+            w.putbits(1, p.enable_bipred)
+            sub_gop = max(1, p.num_reorder_pics + 1)
+            num_encoded = 0
+            last_PorI = -1
+            self.last_intra_frame_num = 0
+            frame_num0 = p.skip
         min_interp_depth = _log2i(p.num_reorder_pics + 1) - 2
         if p.frame_rate > 30:
             min_interp_depth -= 1
 
-        num_encoded = 0
-        last_PorI = -1
-        self.last_intra_frame_num = 0
-        frame_num0 = p.skip
-
         rec_avail = {}
-        last_output = -1
+        last_output = -1 if resume_path is None \
+            else frame_num0 - p.skip - 1
         display = []
-        with open(out_path, "wb") as out:
+        with out:
             while (frame_num0 < p.skip + p.num_frames
                    and frame_num0 + 1 <= input_total):
                 for k in range(sub_gop):
@@ -539,6 +581,18 @@ class Encoder:
                     sub_gop = 1
                     p.num_reorder_pics = 0
                 frame_num0 += sub_gop
+                if (checkpoint_path and checkpoint_every
+                        and num_encoded % checkpoint_every == 0):
+                    out.flush()
+                    save_encoder_state(self, checkpoint_path, {
+                        "frame_num0": frame_num0,
+                        "num_encoded": num_encoded,
+                        "last_PorI": last_PorI,
+                        "last_intra_frame_num": self.last_intra_frame_num,
+                        "sub_gop": sub_gop,
+                        "num_reorder_pics": p.num_reorder_pics,
+                        "HQperiod": p.HQperiod,
+                        "stream_bytes": out.tell()})
         for i in range(1, MAX_REORDER_BUFFER + 1):
             nxt = (last_output + i) % MAX_REORDER_BUFFER
             if nxt in rec_avail:
@@ -735,6 +789,9 @@ class Encoder:
         out = interpolate_frames(self.refs[r1], self.refs[r2], ratio, pos)
         self.interp_frame = RefFrame.of_padded(out[3], out[4], out[5],
                                                self.frame_num)
+        if not self.params.device_encode:
+            self.interp_frame.host()
+
 
 def _log2i(n: int) -> int:
     return n.bit_length() - 1

@@ -1,9 +1,13 @@
-"""Decoder state carried across from thor_tpu.
+"""Codec state carried across runs, and across from thor_tpu.
 
 A codec has no weights: its state is the reference window. thor_tpu's
 `save_decoder_state` (utils/checkpoint.py:16) writes an .npz holding
-`ref{i}_y/u/v/num`, `seq` and the optional `interp_*`; this loader reads
-that file into the port's Decoder.
+`ref{i}_y/u/v/num`, `seq` and the optional `interp_*`; load_decoder_state
+reads that file into the port's Decoder. The encoder's snapshot
+(save_encoder_state / load_encoder_state, thor_tpu's :42 / :66) holds
+the padded uint8 planes `ref{i}_y/u/v`, `ref{i}_num` and the sequence
+loop's eight counters `loop` (int64): the same file in both packages, so
+a snapshot of either resumes in the other.
 """
 
 from __future__ import annotations
@@ -65,3 +69,49 @@ def load_decoder_state(dec, path: str):
     dec.next_display = n
     dec.pending = [r for num, r in have.items() if num > n]
     return dec
+
+
+LOOP_KEYS = ("frame_num0", "num_encoded", "last_PorI",
+             "last_intra_frame_num", "sub_gop", "num_reorder_pics",
+             "HQperiod", "stream_bytes")
+
+
+def save_encoder_state(enc, path: str, loop: dict):
+    """Snapshot an Encoder at a sub-GOP boundary (between frames): its
+    reference window (codec-padded planes, read back from the device or
+    taken from the mirror's host copies) and the sequence-loop counters
+    `loop` (LOOP_KEYS). Together these are the whole inter-frame state:
+    resuming from them reproduces the rest of the stream byte for byte."""
+    arrs = {}
+    for i, r in enumerate(enc.refs):
+        if r is None:
+            continue
+        h = r.host()
+        arrs[f"ref{i}_y"], arrs[f"ref{i}_u"], arrs[f"ref{i}_v"] = \
+            h.y, h.u, h.v
+        arrs[f"ref{i}_num"] = np.int64(r.frame_num)
+    arrs["loop"] = np.array([loop[k] for k in LOOP_KEYS], np.int64)
+    np.savez_compressed(path, **arrs)
+
+
+def load_encoder_state(enc, path: str) -> dict:
+    """Restore an Encoder's reference window on its device (the numpy
+    planes stay as the mirror's host copies); returns the loop counters
+    to continue encode_sequence from."""
+    from ..enc.encoder import RefFrame     # enc.encoder imports this module
+    from ..enc.host import HostRef
+
+    refs = [None] * len(enc.refs)
+    with np.load(path) as z:
+        for i in range(len(refs)):
+            if f"ref{i}_y" not in z:
+                continue
+            planes = [np.ascontiguousarray(z[f"ref{i}_{c}"], np.uint8)
+                      for c in "yuv"]
+            num = int(z[f"ref{i}_num"])
+            refs[i] = RefFrame.of_padded(
+                *(torch.from_numpy(a).to(enc.device) for a in planes), num,
+                host=HostRef(*planes, num))
+        lo = z["loop"]
+    enc.refs = refs
+    return {k: int(v) for k, v in zip(LOOP_KEYS, lo)}

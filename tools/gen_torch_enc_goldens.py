@@ -4,15 +4,18 @@
     JAX_PLATFORMS=cpu python3 tools/gen_torch_enc_goldens.py [case ...]
     JAX_PLATFORMS=cpu python3 tools/gen_torch_enc_goldens.py --fixtures
 
-The port's device encoder (thor_tpu_torch.enc) must write the same bytes
-as thor_tpu's (device_encode=1) for the same EncoderParams and input. A
-machine with a CUDA card has no JAX, so the oracle's streams are kept as
-data: this tool runs thor_tpu's encoder on crops of the committed
-testdata/test_cif.yuv and writes testdata/torch_enc_<case>.bit for every
-case of CASES (or the named ones), after checking that thor_tpu's numpy
-decoder reproduces the encoder's reconstruction. XLA compiles dominate
-its run time on a CPU: minutes per all-intra case, one to two and a half
-hours per P/B case (8 cores).
+The port's encoders (thor_tpu_torch.enc) must write the same bytes as
+thor_tpu's for the same EncoderParams and input: the device encoder
+(device_encode=1) and the host mirror encoder (device_encode=0, the
+host_* cases). A machine with a CUDA card has no JAX, so the oracle's
+streams are kept as data: this tool runs thor_tpu's encoder on crops of
+the committed testdata/test_cif.yuv and writes
+testdata/torch_enc_<case>.bit for every case of CASES (or the named
+ones), after checking that thor_tpu's numpy decoder reproduces the
+encoder's reconstruction. On a CPU (8 cores) the device cases spend their
+time in XLA compiles, minutes per all-intra case and one to two and a
+half hours per P/B case; the host cases are numpy, 0.5 to 2 minutes
+each.
 
 --fixtures writes testdata/torch_enc_inter_fixtures.npz instead: seeded
 128x64 inputs of the P/B-frame modules (the banded windows and MC, ME, the
@@ -62,6 +65,26 @@ CASES = {
         qp=32, num_frames=5, device_encode=1, max_num_ref=2,
         enable_bipred=1, use_block_contexts=1, num_reorder_pics=3,
         interp_ref=1, enable_tb_split=1, encoder_speed=2)),
+    # the host mirror encoder (device_encode=0): thor_tpu's numpy search.
+    # All-intra CIF with RDOQ and a delta-QP trial per superblock
+    "host_intra_cif": (352, 288, dict(
+        qp=32, intra_period=1, num_frames=1, device_encode=0, intra_rdo=1,
+        rdoq=1, max_delta_qp=1, use_block_contexts=1)),
+    # LDB: I, P, then P with two references and bipred
+    "host_ldb_qcif": (176, 144, dict(
+        qp=32, num_frames=3, device_encode=0, max_num_ref=2,
+        enable_bipred=1, use_block_contexts=1)),
+    # RA: hierarchical B frames predicting from the synthesized reference.
+    # No tb split: thor_tpu's mirror stores a tb-split block's coded-block
+    # flags unlike the decoder, so its filters leave a reconstruction the
+    # stream does not decode to (tests/test_torch_enc_host.py pins it)
+    "host_ra_qcif": (176, 144, dict(
+        qp=32, num_frames=5, device_encode=0, num_reorder_pics=3,
+        interp_ref=1, max_num_ref=2, enable_bipred=1)),
+    # the LDB form at CIF: the mirror's time per frame on the card
+    "host_ldb_cif": (352, 288, dict(
+        qp=32, num_frames=3, device_encode=0, max_num_ref=2,
+        enable_bipred=1, use_block_contexts=1)),
 }
 
 
