@@ -35,10 +35,21 @@ Phases (any failure exits nonzero):
      goldens; then the 1080p RA16 stream (sha256), the RA / RA16 / HDB CIF
      goldens and RA16_long (sha256), which must launch all five decoder
      kernels and call no plain version; fps of both 1080p decodes, three
-     repeats. Then the device encoder: an all-intra encode of three
-     1920x1080 frames (the top-left crop of testdata/test_4k.yuv), which
-     the port's decoder must read back to the encoder's reconstruction; a
-     CIF encode with the fast transforms through the command line; and
+     repeats. Then the Python parse route: both 1080p streams decoded with
+     collect_stats=True (the instrumented Python parser on the parse
+     thread, dec/syntax_inputs.py into the frame program), each equal to
+     its sha256 golden, its Thordec statistics report equal to thor_tpu's
+     committed testdata/torch_dec_stats_<stream>.txt, with the counters
+     around it (mc_frame and intra_scan on both, kernels 3-5 on RA16, no
+     plain call), its seconds and the serial Python parse's ms per frame;
+     RA16 again with digest=True, each frame's device checksum equal to
+     frame_digest_np of the golden-checked frame; the numpy backend (host
+     only) on the CIF goldens, RA16_long and the 1080p LDB stream, with
+     its seconds per frame. Then the device encoder: an all-intra encode
+     of three 1920x1080 frames (the top-left crop of
+     testdata/test_4k.yuv), which the port's decoder must read back to the
+     encoder's reconstruction; a CIF encode with the fast transforms
+     through the command line; and
      the three committed thor_tpu all-intra streams
      (testdata/torch_enc_intra_*.bit), which the card must reproduce byte
      for byte. Then the encoder's P and B frames: frames 0-3 of the same
@@ -64,7 +75,7 @@ Phases (any failure exits nonzero):
      checkpoint after frame 1 and resumed, equal to their goldens;
   5. a {"kernels": [...]} JSON line (six kernels; mc_frame and encode_scan
      with their launches in the P/B encode; each with its launches over
-     the mirror encodes);
+     the mirror encodes and over the two collect_stats decodes);
   6. last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or thor_tpu. Without a CUDA device it exits 1 and
 prints no result.
@@ -428,10 +439,12 @@ def phase_build():
         _build.cuda_library(name)
     native.lib()
     native.decide_lib()
+    native.interp_lib()
     dt = time.perf_counter() - t0
-    log(f"[build] CUDA kernels {list(_build.CUDA_SOURCES)}, the C parser and "
-        f"the encoder's C walk and emit ready in {dt:.2f} s (the CUDA "
-        f"sources built in parallel; into {_build.BUILD_DIR})")
+    log(f"[build] CUDA kernels {list(_build.CUDA_SOURCES)}, the C parser, "
+        f"the encoder's C walk and emit and the host interpolation ready in "
+        f"{dt:.2f} s (the CUDA sources built in parallel; into "
+        f"{_build.BUILD_DIR})")
     for name in _build.CUDA_SOURCES:
         for ln in _build.BUILD_LOG.get(name, "").splitlines():
             if any(w in ln for w in ("registers", "Compiling entry", "spill",
@@ -939,6 +952,139 @@ def phase_slice(path, must_launch, goldens, dev, card):
     timed_decodes(path, want, dev, card)
     return launches, n
 
+
+
+# ---------------------------------------------------------------------------
+# the Python parse route with Thordec's statistics, the digest, the numpy
+# backend
+# ---------------------------------------------------------------------------
+
+def python_parse_seconds(path):
+    """Seconds of the Python parse of every frame of `path`, serially on
+    the host: FrameParser alone, and with the adapter to the C parse's
+    layout (dec/syntax_inputs.py) that the card route feeds its input
+    builder."""
+    from thor_tpu_torch.bitstream.reader import BitReader, iter_frames
+    from thor_tpu_torch.codec.constants import MAX_REF_FRAMES
+    from thor_tpu_torch.dec.parse import FrameParser, SequenceHeader
+    from thor_tpu_torch.dec.syntax_inputs import syntax_to_native
+
+    payloads = list(iter_frames(str(path)))
+    br = BitReader(payloads[0])
+    seq = SequenceHeader.read(br)
+    nums, pos, t_parse, t_adapt = [0] * MAX_REF_FRAMES, br.pos, 0.0, 0.0
+    for p in payloads:
+        b = BitReader(p)
+        b.pos = pos
+        t0 = time.perf_counter()
+        fs = FrameParser(seq, b, nums).parse()
+        t1 = time.perf_counter()
+        syntax_to_native(fs, seq)
+        t_adapt += time.perf_counter() - t1
+        t_parse += t1 - t0
+        nums, pos = [fs.display_frame_num] + nums[:-1], 0
+    return len(payloads), t_parse, t_adapt
+
+
+def stats_decode(path, must_launch, dev, card):
+    """Decoder(collect_stats=True) on the card: the Python parse on the
+    parse thread, through the adapter into the frame program. The frames
+    must equal the sha256 golden, the report the committed thor_tpu
+    report, and every kernel in `must_launch` must launch with no plain
+    version called (counters set to 0 just before, read just after).
+    Returns the launches and frame_digest_np of every frame."""
+    from thor_tpu_torch.dec.__main__ import report
+    from thor_tpu_torch.dec.decoder import Decoder, frame_digest_np
+    from tools.gen_torch_dec_stats import report_path
+
+    n, t_parse, t_adapt = python_parse_seconds(path)
+    want = path.with_name(path.stem + "_dec.sha256").read_text().split()[0]
+    zero_counters()
+    t0 = time.perf_counter()
+    dec = Decoder(device=dev, collect_stats=True)
+    h, digests = hashlib.sha256(), []
+    for planes in dec.decode_stream(str(path)):
+        for p in planes:
+            h.update(p.tobytes())
+        digests.append(frame_digest_np(*planes))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_counters()
+    same = report(dec.stats) == report_path(path.stem).read_text()
+    log(f"[stats] {path.name} with collect_stats on {dev} (Python parse, "
+        f"adapter, frame program): {len(digests)} frames sha256 "
+        f"{'matches' if h.hexdigest() == want else 'DIFFERS FROM'} golden; "
+        f"report {'equals' if same else 'DIFFERS FROM'} "
+        f"{report_path(path.stem).name}; decode {wall:.3f} s, "
+        f"{len(digests) / wall:.4f} fps (host clock, ends in "
+        f"torch.cuda.synchronize(), frame_digest_np of each frame "
+        f"included); Python parse alone {t_parse:.3f} s = "
+        f"{t_parse / n * 1e3:.1f} ms/frame, adapter {t_adapt / n * 1e3:.2f} "
+        f"ms/frame (serial on the host, {n} frames); launches {launches}; "
+        f"plain calls {plain}; card {card}")
+    if h.hexdigest() != want or len(digests) != 17 or not same:
+        raise AssertionError(f"{path.name}: the stats decode differs from "
+                             "its golden or its report from thor_tpu's")
+    if not all(launches[k] for k in must_launch) or any(plain.values()):
+        raise AssertionError(f"{path.name}: the stats decode did not run "
+                             f"through the kernels {must_launch} alone")
+    return launches, digests
+
+
+def numpy_decodes(card):
+    """The numpy backend (host only) on the CIF goldens, RA16_long and the
+    1080p LDB stream; the seconds of each decode."""
+    from thor_tpu_torch.dec.decoder import Decoder
+    for name in CIF_STREAMS + CIF_INTERP_STREAMS + (
+            "RA16_long", STREAM_1080.stem):
+        path = TESTDATA / f"{name}.bit"
+        t0 = time.perf_counter()
+        frames = list(Decoder(backend="numpy").decode_stream(str(path)))
+        dt = time.perf_counter() - t0
+        got = b"".join(p.tobytes() for f in frames for p in f)
+        yuv = TESTDATA / f"{name}_dec.yuv"
+        if yuv.exists():
+            ok, what = got == yuv.read_bytes(), yuv.name
+        else:
+            want = (TESTDATA / f"{name}_dec.sha256").read_text().split()[0]
+            ok = hashlib.sha256(got).hexdigest() == want
+            what = f"{name}_dec.sha256"
+        log(f"[numpy] {name}: {len(frames)} frames "
+            f"{'match' if ok else 'DIFFER FROM'} {what}; {dt:.3f} s, "
+            f"{dt / len(frames):.4f} s/frame (host numpy and C, native "
+            f"parse; host of card {card})")
+        if not ok:
+            raise AssertionError(f"numpy backend: {name} differs from its "
+                                 "golden")
+
+
+def phase_python_route(dev, card):
+    """The Python parse route with Thordec's statistics on both 1080p
+    streams, the digest decode of RA16, the numpy backend. Returns the
+    launches of the two stats decodes."""
+    from thor_tpu_torch.dec.decoder import Decoder
+    t_phase = time.perf_counter()
+    ldb = ("mc_frame", "intra_scan")
+    launches_ldb, _ = stats_decode(STREAM_1080, ldb, dev, card)
+    launches_ra, digests = stats_decode(STREAM_RA_1080, ldb + SYNTH, dev,
+                                        card)
+    t0 = time.perf_counter()
+    got = list(Decoder(device=dev).decode_stream(str(STREAM_RA_1080),
+                                                 digest=True))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    same = [int(x) for x in got] == [int(x) for x in digests]
+    log(f"[stats] {STREAM_RA_1080.name} digest=True (native parse): "
+        f"{len(got)} uint32 checksums "
+        f"{'equal' if same else 'DIFFER FROM'} frame_digest_np of the "
+        f"golden-checked frames; {dt:.3f} s, {len(got) / dt:.3f} fps; "
+        f"first {[int(x) for x in got[:3]]}; card {card}")
+    if not same:
+        raise AssertionError("digest decode differs from frame_digest_np")
+    numpy_decodes(card)
+    log(f"[stats] Python-route phase: {time.perf_counter() - t_phase:.1f} s "
+        f"in all (host clock); card {card}")
+    return launches_ldb, launches_ra
 
 
 # ---------------------------------------------------------------------------
@@ -1545,6 +1691,7 @@ def main():
     launches_ra, _ = phase_slice(
         STREAM_RA_1080, ldb + ("me_level", "mot_comp", "mot_comp_uv"),
         CIF_INTERP_STREAMS + ("RA16_long",), dev, card)
+    launches_py_ldb, launches_py_ra = phase_python_route(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches_enc = phase_encode(dev, card, Path(tmp))
         launches_pb = phase_encode_pb(dev, card, Path(tmp))
@@ -1572,6 +1719,8 @@ def main():
             "launches": (launches if name in ldb else launches_enc
                          if name == "encode_scan" else launches_ra)[name],
             "launches_ra16_path": launches_ra[name],
+            "launches_python_parse_ldb": launches_py_ldb[name],
+            "launches_python_parse_ra16": launches_py_ra[name],
             **({"launches_pb_encode": launches_pb[name]}
                if name in ("mc_frame", "encode_scan") else {}),
             "launches_host_encode": launches_host[name],
@@ -1585,7 +1734,10 @@ def main():
         f"U/V launch at the 1080p I frame; launches: mc_frame and "
         f"intra_scan over the {nframes}-frame LDB decode, the interpolation "
         f"kernels over the {nframes}-frame "
-        f"RA16 decode (launches_ra16_path: those five there), encode_scan "
+        f"RA16 decode (launches_ra16_path: those five there; "
+        f"launches_python_parse_ldb / _ra16: each kernel over the "
+        f"collect_stats decodes of the two 1080p streams, Python parse), "
+        f"encode_scan "
         f"over the 3-frame 1080p all-intra encode (launches_pb_encode: "
         f"mc_frame and encode_scan over the 4-frame 1080p LDB-form encode; "
         f"launches_host_encode: each kernel over the four host mirror "

@@ -9,6 +9,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from thor_tpu.dec import native_inputs as NI
 from thor_tpu.dec.decoder import decode_file as tpu_decode_file
@@ -28,6 +29,16 @@ STREAMS = ["intra_only", "LDB_low_complexity", "LDB_medium_complexity",
 # streams coded with interp_ref (RA_low_complexity synthesizes 7 references)
 INTERP_STREAMS = ["RA_low_complexity", "RA16_high_efficiency",
                   "HDB16_medium_complexity"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tests run in parallel processes, and a
+    busy CPU makes PyTorch's thread pool many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _concat(frames):

@@ -34,10 +34,15 @@ def test_port_imports_no_jax_and_no_thor_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     out = r.stdout.split()
-    assert int(out[0]) >= 43       # the enc package and host mirror included
+    assert int(out[0]) >= 47       # the enc package, host mirror and
+    #                                 the numpy decode backend included
     assert {"thor_tpu_torch.enc.host", "thor_tpu_torch.enc.inter",
             "thor_tpu_torch.enc.quant", "thor_tpu_torch.ops.np_kernels",
-            "thor_tpu_torch.utils.checkpoint"} <= set(out)
+            "thor_tpu_torch.utils.checkpoint",
+            "thor_tpu_torch.dec.native_adapter",
+            "thor_tpu_torch.dec.syntax_inputs",
+            "thor_tpu_torch.dec.reconstruct_np",
+            "thor_tpu_torch.ops.temporal_interp"} <= set(out)
 
 
 def test_entry_points_raise_without_a_card(tmp_path):

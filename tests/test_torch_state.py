@@ -1,22 +1,39 @@
-"""Decoder state carried across: thor_tpu's numpy Decoder decodes the
-first frames and saves its state; the port loads it and decodes the rest,
-which must equal the golden. Tolerance: exact equality.
+"""Decoder state carried across: a decoder of either package (the port on
+either backend) decodes the first frames and saves its state; a fresh
+decoder of either package loads it and decodes the rest, which must equal
+the straight decode and the golden. Tolerance: exact equality.
 """
 
 import numpy as np
+import pytest
+import torch
 
 from thor_tpu.bitstream.reader import BitReader as TpuBitReader
 from thor_tpu.dec.decoder import Decoder as TpuDecoder
 from thor_tpu.dec.parse import SequenceHeader as TpuSequenceHeader
 from thor_tpu.dec.reconstruct_np import RefFrame as TpuRefFrame
+from thor_tpu.utils.checkpoint import load_decoder_state as \
+    tpu_load_decoder_state
 from thor_tpu.utils.checkpoint import save_decoder_state
 from thor_tpu_torch.bitstream.reader import iter_frames
 from thor_tpu_torch.dec.decoder import Decoder
 from thor_tpu_torch.utils.checkpoint import load_decoder_state
+from thor_tpu_torch.utils.checkpoint import \
+    save_decoder_state as save_decoder_state_port
 
 from .conftest import TESTDATA
 
 SPLIT = 5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tests run in parallel processes, and a
+    busy CPU makes PyTorch's thread pool many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _golden(name, n_frames, W, H):
@@ -111,3 +128,97 @@ def test_loader_pads_unpadded_planes(tmp_path):
     assert np.array_equal(dec.refs[0].u.numpy(), np.pad(u, 48, "edge"))
     assert dec.refs[0].frame_num == 3 and dec.next_display == 4
     assert not dec.refs[1].y.any()
+
+
+def _port_first_part(backend, name, split):
+    """The port decodes the first `split` frames of `name`; returns the
+    decoder, the payloads and the frames it put out."""
+    from thor_tpu_torch.bitstream.reader import BitReader
+    from thor_tpu_torch.dec.parse import SequenceHeader
+    payloads = list(iter_frames(str(TESTDATA / f"{name}.bit")))
+    dec = Decoder(device="cpu", backend=backend)
+    br = BitReader(payloads[0])
+    dec.start(SequenceHeader.read(br))
+    out = list(dec.decode_payloads(payloads[:split], br.pos))
+    return dec, payloads, out
+
+
+def _flat(frames):
+    return [np.concatenate([p.ravel() for p in f]) for f in frames]
+
+
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+def test_save_and_resume_in_a_fresh_decoder(tmp_path, backend):
+    """RA_low_complexity: 5 frames (0, 8, 4, 2, 6: one put out, four
+    ahead of their turn, an interpolated reference), a snapshot, the rest
+    in a fresh Decoder of the same backend; together they are the straight
+    decode and the golden."""
+    name = "RA_low_complexity"
+    dec, payloads, first = _port_first_part(backend, name, SPLIT)
+    assert dec.interp_frame is not None
+    ckpt = tmp_path / "state.npz"
+    save_decoder_state_port(dec, str(ckpt))
+
+    fresh = load_decoder_state(Decoder(device="cpu", backend=backend),
+                               str(ckpt))
+    assert fresh.next_display == len(first)
+    rest = list(fresh.decode_payloads(payloads[SPLIT:]))
+    W, H = dec.seq.width, dec.seq.height
+    golden = _golden(name, len(payloads), W, H)
+    got = _flat(first + rest)
+    assert len(got) == len(payloads)
+    for k, f in enumerate(got):
+        assert np.array_equal(f, golden[k]), f"frame {k}"
+
+
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+def test_thor_tpu_resumes_from_port_snapshot(tmp_path, backend):
+    """thor_tpu's load_decoder_state reads the port's file (either
+    backend's): the window holds frames 2, 4, 6, 8 decoded ahead of their
+    turn, and thor_tpu's numpy decoder decodes 1, 3, 5, 7, 9 from it, all
+    equal to the golden."""
+    name = "RA_low_complexity"
+    dec, payloads, first = _port_first_part(backend, name, SPLIT)
+    ckpt = tmp_path / "state.npz"
+    save_decoder_state_port(dec, str(ckpt))
+
+    tpu = tpu_load_decoder_state(TpuDecoder(), str(ckpt))
+    assert tpu.interp_frame is not None
+    H, W = tpu.seq.height, tpu.seq.width
+    assert tpu.refs[0].y.shape == (H + 192, W + 192)
+    ahead = {r.frame_num: np.concatenate([
+        p[n:-n, n:-n].ravel() for p, n in ((r.y, 96), (r.u, 48),
+                                           (r.v, 48))])
+        for r in tpu.refs[:SPLIT - 1]}
+    rest = _tpu_decode(tpu, payloads[SPLIT:], False)
+    golden = _golden(name, len(payloads), W, H)
+    assert sorted(ahead) == [2, 4, 6, 8] and sorted(rest) == [1, 3, 5, 7, 9]
+    for k, f in {**ahead, **rest}.items():
+        assert np.array_equal(f, golden[k]), f"frame {k}"
+
+
+def test_numpy_backend_resumes_from_thor_tpu_checkpoint(tmp_path):
+    """thor_tpu's snapshot of RA_low_complexity after four frames (an
+    interpolated reference, three frames decoded ahead of their turn) on
+    the port's numpy backend: host reference planes, frames 1..9 put out
+    in display order, equal to thor_tpu's decode and the golden."""
+    name, split = "RA_low_complexity", 4
+    payloads = list(iter_frames(str(TESTDATA / f"{name}.bit")))
+    tpu = TpuDecoder()
+    before = _tpu_decode(tpu, payloads[:split], True)
+    ckpt = tmp_path / "state.npz"
+    save_decoder_state(tpu, str(ckpt))
+
+    dec = load_decoder_state(Decoder(backend="numpy"), str(ckpt))
+    assert dec.next_display == 1 and dec.device is None
+    assert isinstance(dec.refs[0].y, np.ndarray)
+    assert np.array_equal(dec.interp_frame.y, np.asarray(tpu.interp_frame.y))
+    out = list(dec.decode_payloads(payloads[split:]))
+    assert dec.next_display == len(payloads) and not dec.pending
+
+    rest = _tpu_decode(tpu, payloads[split:], False)
+    golden = _golden(name, len(payloads), tpu.seq.width, tpu.seq.height)
+    assert len(out) == len(payloads) - 1
+    for k, f in enumerate(_flat(out), start=1):
+        assert np.array_equal(f, {**before, **rest}[k]), f"frame {k}"
+        assert np.array_equal(f, golden[k]), f"frame {k}"

@@ -1,19 +1,29 @@
 """Top-level decoder: stream framing, the sliding reference window,
 reorder to display order (dec/maindec.c:91-195, dec/decode_frame.c:45-148).
 
-Pipelined like thor_tpu dec/decoder.py:222-356:
-  - a parse thread runs the serial C entropy parse, tracking the window
-    of reference display numbers itself;
-  - a small worker pool builds each parsed frame's inputs and copies them
-    to the device ahead of time;
-  - the main thread stacks the reference planes, queues the frame
-    program, and materializes output _DEPTH frames behind the dispatch
-    front (each frame's device->host copy is queued right after its
-    program, into pinned memory, and waited for only when yielded).
-The reference window (33 frames, codec-padded) stays on the device, and so
-does the interpolated reference of RA / HDB streams: it is synthesized
-from two window frames (ops/interp.py) on the same stream, just before
-the frame program that predicts from it.
+Two backends, as in thor_tpu dec/decoder.py:
+  - "torch" (the default), pipelined like thor_tpu dec/decoder.py:222-356:
+      - a parse thread runs the serial entropy parse (the native C parse,
+        or the instrumented Python FrameParser laid out as the C parse's
+        frame by dec/syntax_inputs.py), tracking the window of reference
+        display numbers itself;
+      - a small worker pool builds each parsed frame's inputs and copies
+        them to the device ahead of time;
+      - the main thread stacks the reference planes, queues the frame
+        program, and materializes output _DEPTH frames behind the dispatch
+        front (each frame's device->host copy is queued right after its
+        program, into pinned memory, and waited for only when yielded).
+    The reference window (33 frames, codec-padded) stays on the device, and
+    so does the interpolated reference of RA / HDB streams: it is
+    synthesized from two window frames (ops/interp.py) on the same stream,
+    just before the frame program that predicts from it.
+  - "numpy": thor_tpu's serial host loop (dec/decoder.py:176-219,
+    :427-488), the exact host oracle: dec/reconstruct_np.py on host
+    reference planes, the interpolated reference from the C copy
+    (ops/temporal_interp.py). It touches no device.
+
+With collect_stats the parse is the Python FrameParser, which counts what
+Thordec's statistics report prints (dec/maindec.c:197-329; dec/__main__.py).
 """
 
 from __future__ import annotations
@@ -26,19 +36,28 @@ from concurrent.futures import ThreadPoolExecutor
 from itertools import chain
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..bitstream.reader import BitReader, iter_frames
 from ..codec.constants import (
-    MAX_REF_FRAMES, MAX_REORDER_BUFFER, PAD_C, PAD_Y)
+    MAX_REF_FRAMES, MAX_REORDER_BUFFER, MODE_BIPRED, MODE_INTER, PAD_C, PAD_Y)
 from ..device import resolve_device
-from ..native import parse_frame, seqhdr_from_python
-from ..ops.interp import interpolate_frames
+from ..native import lib, parse_frame, seqhdr_from_python
+from ..ops import interp, temporal_interp
 from .inputs import build_frame_inputs
-from .parse import SequenceHeader
+from .native_adapter import native_parse_to_syntax
+from .parse import FrameParser, SequenceHeader
 from .reconstruct import mc_luts, reconstruct_frame, to_device
+from .reconstruct_np import RefFrame as NpRefFrame
+from .reconstruct_np import apply_clpf
+from .reconstruct_np import reconstruct_frame as reconstruct_frame_np
+from .syntax_inputs import syntax_to_native
 
 _DEPTH = 2      # frames in flight between dispatch and output
+BACKENDS = ("torch", "numpy")
+PARSERS = ("native", "python")
+FRAME_TYPES = {0: "I", 1: "P", 2: "B"}
 
 
 class RefFrame:
@@ -56,6 +75,56 @@ def needs_interp(fh) -> bool:
     (dec/decode_frame.c:91-109)."""
     return bool(fh.interp_ref_frame and fh.num_ref > 2
                 and fh.ref_array[0] == -1)
+
+
+def frame_digest_np(y, u, v):
+    """Host twin of the device digest (_Digest) over (y, u, v) planes (the
+    packed layout is y on top, u|v below): the position-weighted sum
+    sum(p[i] * (2i + 1)) mod 2^32 (thor_tpu dec/decoder.py:70-77)."""
+    packed = np.vstack([y, np.hstack([u, v])])
+    val = packed.reshape(-1).astype(np.uint32)
+    i = np.arange(val.size, dtype=np.uint32)
+    return np.uint32(np.sum(val * (2 * i + 1), dtype=np.uint32))
+
+
+def new_stats() -> dict:
+    """An empty bit_count_t analogue (dec/maindec.c:197-329)."""
+    return {"frame_type": {}, "mode": {}, "size": {}, "size_mode": {},
+            "frame_bits": {}, "cats": {}, "size_ref": {}, "bi_ref": {},
+            "super_stat": {}, "num_ref_max": 0, "seq_header": 0}
+
+
+def count_frame(st: dict, fs, nbits: int):
+    """Add one parsed frame to the statistics `st` (thor_tpu
+    dec/decoder.py:444-470). nbits: the payload's bits, the sequence
+    header's included on the first frame."""
+    ft = FRAME_TYPES[fs.stat_frame_type]
+    st["frame_type"][ft] = st["frame_type"].get(ft, 0) + 1
+    st["frame_bits"][ft] = st["frame_bits"].get(ft, 0) + nbits
+    if fs.bit_cats:
+        for cat, v in fs.bit_cats.items():
+            st["cats"][(ft, cat)] = st["cats"].get((ft, cat), 0) + v
+    st["num_ref_max"] = max(st["num_ref_max"], fs.num_ref)
+    for b in fs.blocks:
+        # counts in 8x8 units like bit_count_t (dec/maindec.c:240+)
+        n8 = (b.bwidth // 8) * (b.bheight // 8)
+        key = (ft, b.mode)
+        st["mode"][key] = st["mode"].get(key, 0) + n8
+        skey = (ft, b.size)
+        st["size"][skey] = st["size"].get(skey, 0) + n8
+        smkey = (ft, b.size, b.mode)
+        st["size_mode"][smkey] = st["size_mode"].get(smkey, 0) + n8
+        # size_and_ref_idx / bi_ref in block units
+        # (dec/read_bits.c:389, :526)
+        if b.mode == MODE_INTER:
+            rk = (ft, b.size, b.ref_idx0)
+            st["size_ref"][rk] = st["size_ref"].get(rk, 0) + 1
+        elif b.mode == MODE_BIPRED:
+            bk = (ft, b.ref_idx0 * fs.num_ref + b.ref_idx1)
+            st["bi_ref"][bk] = st["bi_ref"].get(bk, 0) + 1
+    for (sz, code) in (fs.super_stat or ()):
+        sk = (ft, sz, code)
+        st["super_stat"][sk] = st["super_stat"].get(sk, 0) + 1
 
 
 class _Output:
@@ -79,18 +148,79 @@ class _Output:
         return tuple(p.numpy() for p in self.planes)
 
 
-class Decoder:
-    """Decodes Thor streams on `device` ("cuda" by default; "cpu" runs
-    the kernels' plain versions). `mc_clamped` counts the MC cell windows
-    that left the padded reference plane and were clamped into it
-    (ops/mc.py:build_mc_records); a valid stream has none. `interp_frame`
-    is the newest interpolated reference (padded planes on the device,
-    numbered as the frame it was made for), or None. `pending` lists
-    window frames a loaded snapshot had decoded but not yet output; the
-    next decode_payloads call puts them out in their display order."""
+class _Digest:
+    """The uint32 checksum of one decoded frame (frame_digest_np's value),
+    summed on the frame's device in int64, which holds a 1080p frame's sum
+    exactly (below 2^53), then masked to 32 bits. Only the 8-byte sum
+    crosses to the host."""
 
-    def __init__(self, device=None):
-        self.device = resolve_device(device)
+    __slots__ = ("value", "event")
+
+    def __init__(self, planes, weights):
+        y, u, v = planes
+        packed = torch.cat([y.reshape(-1), torch.cat([u, v], 1).reshape(-1)])
+        s = (packed.to(torch.int64) * weights).sum()
+        if s.device.type == "cuda":
+            self.value = torch.empty((), dtype=torch.int64, pin_memory=True) \
+                .copy_(s, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.value, self.event = s, None
+
+    def get(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return np.uint32(int(self.value) & 0xFFFFFFFF)
+
+
+class _Reorder:
+    """Display-order release of decoded frames (dec/maindec.c:167-195)."""
+
+    def __init__(self, next_display: int):
+        self.slots: dict = {}
+        self.last = next_display - 1
+
+    def put(self, display_num: int, item) -> list:
+        """Store frame `display_num`; return the frames now due, in order."""
+        self.slots[display_num % MAX_REORDER_BUFFER] = item
+        due = []
+        while (self.last + 1) % MAX_REORDER_BUFFER in self.slots:
+            self.last += 1
+            due.append(self.slots.pop(self.last % MAX_REORDER_BUFFER))
+        return due
+
+
+class Decoder:
+    """Decodes Thor streams.
+
+    backend "torch" runs the frame program on `device` ("cuda" by default;
+    "cpu" runs the kernels' plain versions); "numpy" runs thor_tpu's host
+    oracle and uses no device (`device` is not used). parse "native" is the
+    C parse, "python" the instrumented FrameParser; collect_stats forces
+    "python" and fills `stats` (the counts Thordec's report prints).
+
+    `mc_clamped` counts the MC cell windows that left the padded reference
+    plane and were clamped into it (ops/mc.py:build_mc_records); a valid
+    stream has none. `interp_frame` is the newest interpolated reference
+    (padded planes, numbered as the frame it was made for), or None.
+    `pending` lists window frames a loaded snapshot had decoded but not yet
+    output; the next decode_payloads call puts them out in their display
+    order."""
+
+    def __init__(self, device=None, backend: str = "torch",
+                 collect_stats: bool = False, parse: str = "native"):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}")
+        if parse not in PARSERS:
+            raise ValueError(f"parse must be one of {PARSERS}")
+        self.backend = backend
+        # the bit statistics need the instrumented Python parser
+        self.device = resolve_device(device) if backend == "torch" else None
+        self.parse_mode = "python" if collect_stats else parse
+        if self.parse_mode == "native":
+            lib()               # a C parse that fails to build raises here
+        self.stats = new_stats() if collect_stats else None
         self.seq: Optional[SequenceHeader] = None
         self.refs = [None] * MAX_REF_FRAMES
         self.interp_frame = None
@@ -98,15 +228,22 @@ class Decoder:
         self.next_display = 0
         self.mc_clamped = 0
         self._luts = None
+        self._digest_w = None
 
     def start(self, seq: SequenceHeader):
         """Begin a sequence: the window holds zero frames numbered 0."""
         self.seq = seq
         H, W = seq.height, seq.width
-        z = RefFrame(*(torch.zeros((h + 2 * p, w + 2 * p), dtype=torch.uint8,
-                                   device=self.device)
-                       for h, w, p in ((H, W, PAD_Y), (H // 2, W // 2, PAD_C),
-                                       (H // 2, W // 2, PAD_C))), 0)
+        if self.backend == "numpy":
+            z = NpRefFrame(np.zeros((H, W), np.uint8),
+                           np.zeros((H // 2, W // 2), np.uint8),
+                           np.zeros((H // 2, W // 2), np.uint8), 0)
+        else:
+            z = RefFrame(*(torch.zeros((h + 2 * p, w + 2 * p),
+                                       dtype=torch.uint8, device=self.device)
+                           for h, w, p in ((H, W, PAD_Y),
+                                           (H // 2, W // 2, PAD_C),
+                                           (H // 2, W // 2, PAD_C))), 0)
         self.refs = [z] * MAX_REF_FRAMES
         self.interp_frame = None
         self.pending = []
@@ -128,37 +265,119 @@ class Decoder:
         return r1, r2, off1 + off2, off2
 
     def _make_interp_frame(self, fh):
-        """Synthesize the interpolated reference of frame `fh`. Queued on
-        the current stream; the host waits for nothing."""
-        out = interpolate_frames(*self.interp_pair(fh))
-        self.interp_frame = RefFrame(out[3], out[4], out[5],
-                                     fh.display_frame_num)
+        """Synthesize the interpolated reference of frame `fh`. On the
+        torch backend it is queued on the current stream (the host waits
+        for nothing); on the numpy backend the C copy makes it on the
+        host."""
+        dfn = fh.display_frame_num
+        if self.backend == "numpy":
+            self.interp_frame = NpRefFrame(
+                *temporal_interp.interpolate_frames(*self.interp_pair(fh)),
+                dfn)
+            return
+        out = interp.interpolate_frames(*self.interp_pair(fh))
+        self.interp_frame = RefFrame(out[3], out[4], out[5], dfn)
 
-    def decode_stream(self, path: str):
-        """Yield (y, u, v) uint8 numpy frames in display order."""
+    def _parse_python(self, payload, pos, nums):
+        """FrameSyntax of one payload from the Python parser, counted into
+        the statistics when they are collected."""
+        br = BitReader(payload)
+        br.pos = pos
+        fs = FrameParser(self.seq, br, nums).parse()
+        if self.stats is not None:
+            count_frame(self.stats, fs, br.nbits)
+        return fs
+
+    def decode_stream(self, path: str, digest: bool = False):
+        """Yield (y, u, v) uint8 numpy frames in display order; with
+        digest=True (torch backend only) each frame's uint32 checksum
+        instead, computed on the device (frame_digest_np's value)."""
+        if digest and self.backend != "torch":
+            raise ValueError("digest mode needs the torch backend")
         payloads = iter_frames(path)
         first = next(payloads, None)
         if first is None:
             return
         br = BitReader(first)
         self.start(SequenceHeader.read(br))
-        yield from self.decode_payloads(chain([first], payloads), br.pos)
+        if self.stats is not None:
+            self.stats["seq_header"] = br.pos
+        yield from self.decode_payloads(chain([first], payloads), br.pos,
+                                        digest)
 
-    def decode_payloads(self, payloads, first_bit: int = 0):
+    def _pending_planes(self):
+        """Unpadded planes of the snapshot's frames still to be output."""
+        for r in self.pending:
+            yield r.frame_num, tuple(
+                p[n:-n, n:-n] for p, n in ((r.y, PAD_Y), (r.u, PAD_C),
+                                           (r.v, PAD_C)))
+        self.pending = []
+
+    def decode_payloads(self, payloads, first_bit: int = 0,
+                        digest: bool = False):
         """Decode frame payloads of the current sequence (the first one
         starting at bit `first_bit`) and yield display-order frames from
         `self.next_display` on."""
+        if self.backend == "numpy":
+            if digest:
+                raise ValueError("digest mode needs the torch backend")
+            yield from self._decode_payloads_np(payloads, first_bit)
+        else:
+            yield from self._decode_payloads_torch(payloads, first_bit,
+                                                   digest)
+
+    def _decode_payloads_np(self, payloads, first_bit):
+        """thor_tpu's serial host loop (dec/decoder.py:176-219, :427-488)."""
+        seq = self.seq
+        W, H = seq.width, seq.height
+        reorder = _Reorder(self.next_display)
+        pos = first_bit
+        try:
+            for dfn, planes in self._pending_planes():
+                yield from reorder.put(dfn, tuple(p.copy() for p in planes))
+            for payload in payloads:
+                nums = [r.frame_num for r in self.refs]
+                if self.parse_mode == "native":
+                    fs = native_parse_to_syntax(payload, pos, seq, nums)
+                else:
+                    fs = self._parse_python(payload, pos, nums)
+                pos = 0
+                if needs_interp(fs):
+                    self._make_interp_frame(fs)
+                y, u, v = reconstruct_frame_np(
+                    fs, self.refs, self.interp_frame, W, H, seq.bipred,
+                    seq.deblocking)
+                apply_clpf(fs, y, u, v, W, H)
+                dfn = fs.display_frame_num
+                self.refs = [NpRefFrame(y, u, v, dfn)] + self.refs[:-1]
+                yield from reorder.put(dfn, (y, u, v))
+        finally:
+            self.next_display = reorder.last + 1
+
+    def _decode_payloads_torch(self, payloads, first_bit, digest):
         seq = self.seq
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         if self._luts is None:
             self._luts = mc_luts(seq.bipred, self.device)
+        if digest and self._digest_w is None:
+            n = seq.width * seq.height * 3 // 2
+            self._digest_w = torch.arange(n, dtype=torch.int64,
+                                          device=self.device) * 2 + 1
+        out = (lambda planes: _Digest(planes, self._digest_w)) if digest \
+            else _Output
         cs = seqhdr_from_python(seq)
         dev = self.device
         q: queue.Queue = queue.Queue(maxsize=_DEPTH + 2)
         stop = threading.Event()
         pool = ThreadPoolExecutor(max_workers=2)
         nums0 = [r.frame_num for r in self.refs]
+
+        def parse(payload, pos, nums):
+            if self.parse_mode == "native":
+                return parse_frame(payload, pos, cs, nums)
+            return syntax_to_native(self._parse_python(payload, pos, nums),
+                                    seq)
 
         def build(nf, nums):
             cfg, inp, slots = build_frame_inputs(nf, seq, nums)
@@ -178,7 +397,7 @@ class Decoder:
                 nums = list(nums0)
                 pos = first_bit
                 for payload in payloads:
-                    nf = parse_frame(payload, pos, cs, nums)
+                    nf = parse(payload, pos, nums)
                     pos = 0
                     fut = pool.submit(build, nf, list(nums))
                     if not put((nf.hdr, fut)):
@@ -188,17 +407,14 @@ class Decoder:
             except BaseException as e:           # noqa: BLE001
                 put(e)                            # re-raised by the consumer
 
-        reorder: dict = {}
-        for r in self.pending:
-            reorder[r.frame_num % MAX_REORDER_BUFFER] = _Output(tuple(
-                p[n:-n, n:-n].contiguous()
-                for p, n in ((r.y, PAD_Y), (r.u, PAD_C), (r.v, PAD_C))))
-        self.pending = []
+        reorder = _Reorder(self.next_display)
+        ready: deque = deque()
         t = threading.Thread(target=producer, daemon=True)
         t.start()
-        last_output = self.next_display - 1
-        ready: deque = deque()
         try:
+            for dfn, planes in self._pending_planes():
+                ready.extend(reorder.put(dfn, out(tuple(p.contiguous()
+                                                        for p in planes))))
             while True:
                 item = q.get()
                 if item is None:
@@ -221,25 +437,24 @@ class Decoder:
                                                    self._luts)
                 dfn = fh.display_frame_num
                 self.refs = [RefFrame(*padded, dfn)] + self.refs[:-1]
-                reorder[dfn % MAX_REORDER_BUFFER] = _Output(planes)
-                while (last_output + 1) % MAX_REORDER_BUFFER in reorder:
-                    last_output += 1
-                    ready.append(reorder.pop(last_output % MAX_REORDER_BUFFER))
+                ready.extend(reorder.put(dfn, out(planes)))
                 while len(ready) > _DEPTH:
                     yield ready.popleft().get()
             while ready:
                 yield ready.popleft().get()
         finally:
-            self.next_display = last_output + 1
+            self.next_display = reorder.last + 1
             stop.set()
             pool.shutdown(wait=True, cancel_futures=True)
             t.join()
 
 
-def decode_file(path: str, out_path: Optional[str] = None, device=None):
-    """Decode a bitstream on `device` (default "cuda"); write planar YUV
-    to out_path, or return the list of (y, u, v) frames."""
-    dec = Decoder(device=device)
+def decode_file(path: str, out_path: Optional[str] = None, device=None,
+                backend: str = "torch", parse: str = "native"):
+    """Decode a bitstream (backend "torch" on `device`, default "cuda";
+    "numpy" on the host); write planar YUV to out_path, or return the list
+    of (y, u, v) frames."""
+    dec = Decoder(device=device, backend=backend, parse=parse)
     frames = []
     out = open(out_path, "wb") if out_path else None
     try:

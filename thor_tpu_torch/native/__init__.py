@@ -9,7 +9,11 @@ consumes.
 thor_decide.c: the device encoder's decision walk over the measured cost
 maps of a P/B frame and the emission of the decided frame's syntax.
 
-Both are copies of thor_tpu's sources (thor_tpu/native/), kept as they are.
+thor_interp.c: the temporal interpolation pyramid on the host, the numpy
+decode backend's interpolated reference (ops/temporal_interp.py).
+
+All three are copies of thor_tpu's sources (thor_tpu/native/), kept as
+they are. Each builds into its own library; a failed build raises.
 """
 
 from __future__ import annotations
@@ -19,11 +23,12 @@ from pathlib import Path
 
 import numpy as np
 
-from ..codec.constants import MAX_REF_FRAMES
+from ..codec.constants import MAX_REF_FRAMES, PAD_C, PAD_Y
 from ..ops._build import GCC_FLAGS, build_shared
 
 _SRC = Path(__file__).resolve().parent / "thor_entropy.c"
 _SRC_DECIDE = Path(__file__).resolve().parent / "thor_decide.c"
+_SRC_INTERP = Path(__file__).resolve().parent / "thor_interp.c"
 
 i32p = ctypes.POINTER(ctypes.c_int32)
 i16p = ctypes.POINTER(ctypes.c_int16)
@@ -249,12 +254,60 @@ def emit_frame_native(w, enc_params, leaves, bank_row, cbp3, banks, dd):
     w.bitrest = int(p.bitrest)
 
 
+_interp_lib = None
+
+
+def interp_lib() -> ctypes.CDLL:
+    global _interp_lib
+    if _interp_lib is None:
+        so = build_shared([("thor_interp", ("gcc",), _SRC_INTERP,
+                            GCC_FLAGS)])["thor_interp"]
+        L = ctypes.CDLL(str(so))
+        ci = ctypes.c_int
+        L.thor_interpolate_frames.restype = None
+        L.thor_interpolate_frames.argtypes = [u8p] * 6 + [ci] * 4 + [u8p] * 3
+        _interp_lib = L
+    return _interp_lib
+
+
+def interpolate_frames_native(ref0, ref1, ratio: int, pos: int):
+    """The C twin of ops/temporal_interp.interpolate_frames: ref0 / ref1
+    carry codec-padded uint8 numpy planes .y (pad 96) and .u / .v (pad
+    48); returns the synthesized frame's unpadded (y, u, v)."""
+    h = ref0.y.shape[0] - 2 * PAD_Y
+    w = ref0.y.shape[1] - 2 * PAD_Y
+    shapes = ((h + 2 * PAD_Y, w + 2 * PAD_Y),
+              (h // 2 + 2 * PAD_C, w // 2 + 2 * PAD_C),
+              (h // 2 + 2 * PAD_C, w // 2 + 2 * PAD_C))
+    planes = []
+    for r in (ref0, ref1):
+        for a, shape in zip((r.y, r.u, r.v), shapes):
+            a = np.ascontiguousarray(a, np.uint8)
+            if a.shape != shape:
+                raise ValueError(f"interpolate_frames_native: plane of shape "
+                                 f"{a.shape} where {shape} was expected")
+            planes.append(a)
+    out = [np.empty((h, w), np.uint8), np.empty((h // 2, w // 2), np.uint8),
+           np.empty((h // 2, w // 2), np.uint8)]
+    interp_lib().thor_interpolate_frames(
+        *(a.ctypes.data_as(u8p) for a in planes), w, h, int(ratio),
+        int(pos), *(a.ctypes.data_as(u8p) for a in out))
+    return tuple(out)
+
+
 def seqhdr_from_python(seq) -> SeqHdrC:
     """SequenceHeader -> the C struct (dec/native_adapter.py:16)."""
     s = SeqHdrC()
     for name, _t in SeqHdrC._fields_:
         setattr(s, name, getattr(seq, name))
     return s
+
+
+# the per-4x4-cell side-information planes of a parsed frame (NativeFrame.dd,
+# the fields of codec/blockdata.DeblockData), in thor_parse_frame's order
+DD_KEYS = ("mode", "size", "tb_split", "pb_part", "cbp_y", "cbp_u", "cbp_v",
+           "mv0x", "mv0y", "mv1x", "mv1y", "ref_idx0", "ref_idx1",
+           "bipred_flag")
 
 
 class NativeFrame:
@@ -281,10 +334,7 @@ def parse_frame(payload: bytes, start_bit: int, seq: SeqHdrC,
     cap_y = W * H + 128 * 64 * 64
     cap_c = cap_y // 4 + 64 * 32 * 32
 
-    dd = {k: np.zeros((gh, gw), np.int32) for k in
-          ("mode", "size", "tb_split", "pb_part", "cbp_y", "cbp_u",
-           "cbp_v", "mv0x", "mv0y", "mv1x", "mv1y", "ref_idx0",
-           "ref_idx1", "bipred_flag")}
+    dd = {k: np.zeros((gh, gw), np.int32) for k in DD_KEYS}
     fh = FrameHdrC()
     b = {k: np.zeros(cap_blocks, np.int32) for k in
          ("ypos", "xpos", "size", "mode", "dir", "ref0", "ref1", "imode",

@@ -1,12 +1,13 @@
-"""Exact-integer pixel ops of the host mirror encoder (numpy).
+"""Exact-integer pixel ops on the host (numpy), a copy of
+thor_tpu/ops/np_kernels.py.
 
-Counterpart of the per-block part of thor_tpu/ops/np_kernels.py: the
-transforms, the (de)quantizer's scaling, the reconstruction, luma and
-chroma MC, the intra reference samples and the ten intra predictors,
-and the reference edge padding. Each mirrors the scalar semantics of the
-reference C (cited per function) with exact integer arithmetic. The
-mirror's in-loop filters run on the encoder's device instead
-(enc/encoder.Encoder._filters, the decoder's deblocking and CLPF ops).
+The transforms, the (de)quantizer's scaling, the reconstruction, luma and
+chroma MC, the intra reference samples and the ten intra predictors, the
+in-loop filters (deblocking, CLPF) and the reference edge padding. Each
+mirrors the scalar semantics of the reference C (cited per function) with
+exact integer arithmetic. The host mirror encoder uses the per-block ops
+(its filters run on the encoder's device, enc/encoder.Encoder._filters);
+the numpy decode backend (dec/reconstruct_np.py) uses them all.
 """
 
 from __future__ import annotations
@@ -315,6 +316,181 @@ def intra_prediction(left: np.ndarray, top: np.ndarray, top_left: int,
         b = (topF2[diag // 2] + topF2[diag // 2 + 1]) >> 1
         return np.where(odd, a, b).astype(np.uint8)
     raise ValueError(f"bad intra mode {mode}")
+
+
+# ---------------------------------------------------------------------------
+# In-loop filters of the numpy decode backend (dec/reconstruct_np.py)
+# ---------------------------------------------------------------------------
+
+def _trunc_half(d):
+    """C's delta/2 (truncation toward zero) for int arrays."""
+    return np.sign(d) * (np.abs(d) >> 1)
+
+
+def deblock_frame_y(rec: np.ndarray, dd, width, height, qp,
+                    beta_table, tc_table):
+    """Luma deblocking (common/common_frame.c:46-241). In-place on rec."""
+    beta = int(beta_table[qp])
+    tc = int(tc_table[qp])
+    MINB, MINP = 8, 4
+
+    def do_edges(vertical: bool):
+        if vertical:
+            ii = range(0, height, MINB)
+            jj = range(MINB, width, MINB)
+        else:
+            ii = range(MINB, height, MINB)
+            jj = range(0, width, MINB)
+        for ib in ii:
+            for jb in jj:
+                if vertical:
+                    d = (abs(int(rec[ib + 2, jb - 2]) - int(rec[ib + 2, jb - 1]))
+                         + abs(int(rec[ib + 2, jb + 1]) - int(rec[ib + 2, jb]))
+                         + abs(int(rec[ib + 5, jb - 2]) - int(rec[ib + 5, jb - 1]))
+                         + abs(int(rec[ib + 5, jb + 1]) - int(rec[ib + 5, jb])))
+                else:
+                    d = (abs(int(rec[ib - 2, jb + 2]) - int(rec[ib - 1, jb + 2]))
+                         + abs(int(rec[ib + 1, jb + 2]) - int(rec[ib, jb + 2]))
+                         + abs(int(rec[ib - 2, jb + 5]) - int(rec[ib - 1, jb + 5]))
+                         + abs(int(rec[ib + 1, jb + 5]) - int(rec[ib, jb + 5])))
+                for m in range(0, MINB, MINP):
+                    if vertical:
+                        qr, qc = (ib + m) // MINP, jb // MINP
+                        pr, pc = qr, qc - 1
+                    else:
+                        qr, qc = ib // MINP, (jb + m) // MINP
+                        pr, pc = qr - 1, qc
+                    q_size = int(dd.size[qr, qc])
+                    if vertical:
+                        if ((dd.tb_split[qr, qc] or dd.pb_part[qr, qc] in (2, 3))
+                                and q_size > MINB):
+                            q_size //= 2
+                    else:
+                        if ((dd.tb_split[qr, qc] or dd.pb_part[qr, qc] in (1, 3))
+                                and q_size > MINB):
+                            q_size //= 2
+                    mv = (abs(int(dd.mv0x[pr, pc])) >= 4 or abs(int(dd.mv0y[pr, pc])) >= 4
+                          or abs(int(dd.mv0x[qr, qc])) >= 4 or abs(int(dd.mv0y[qr, qc])) >= 4
+                          or abs(int(dd.mv1x[pr, pc])) >= 4 or abs(int(dd.mv1y[pr, pc])) >= 4
+                          or abs(int(dd.mv1x[qr, qc])) >= 4 or abs(int(dd.mv1y[qr, qc])) >= 4)
+                    cbp = dd.cbp_y[pr, pc] or dd.cbp_y[qr, qc]
+                    mode = dd.mode[pr, pc] == 1 or dd.mode[qr, qc] == 1  # MODE_INTRA
+                    pos = jb if vertical else ib
+                    interior = (pos % q_size) > 0
+                    if d < beta and not interior and (mv or cbp or mode):
+                        for k in range(m, m + MINP):
+                            if vertical:
+                                y, x = ib + k, jb
+                                p1, p0 = int(rec[y, x - 2]), int(rec[y, x - 1])
+                                q0, q1 = int(rec[y, x]), int(rec[y, x + 1])
+                            else:
+                                y, x = ib, jb + k
+                                p1, p0 = int(rec[y - 2, x]), int(rec[y - 1, x])
+                                q0, q1 = int(rec[y, x]), int(rec[y + 1, x])
+                            delta = (18 * (q0 - p0) - 6 * (q1 - p1) + 16) >> 5
+                            delta = max(-tc, min(tc, delta))
+                            dh = int(delta / 2) if delta >= 0 else -((-delta) // 2)
+                            if vertical:
+                                rec[y, x - 2] = min(255, max(0, p1 + dh))
+                                rec[y, x - 1] = min(255, max(0, p0 + delta))
+                                rec[y, x] = min(255, max(0, q0 - delta))
+                                rec[y, x + 1] = min(255, max(0, q1 - dh))
+                            else:
+                                rec[y - 2, x] = min(255, max(0, p1 + dh))
+                                rec[y - 1, x] = min(255, max(0, p0 + delta))
+                                rec[y, x] = min(255, max(0, q0 - delta))
+                                rec[y + 1, x] = min(255, max(0, q1 - dh))
+
+    do_edges(True)
+    do_edges(False)
+
+
+def deblock_frame_uv(recu: np.ndarray, recv: np.ndarray, dd, width, height,
+                     qpc, tc_table):
+    """Chroma deblocking (common/common_frame.c:243-321). In-place."""
+    tc = int(tc_table[qpc])
+    MINB, MINP = 8, 4
+    for recC in (recu, recv):
+        # vertical
+        for i in range(0, height, MINB):
+            for j in range(MINB, width, MINB):
+                qr, qc = i // MINP, j // MINP
+                q_size = int(dd.size[qr, qc])
+                mode = dd.mode[qr, qc - 1] == 1 or dd.mode[qr, qc] == 1
+                interior = (j % q_size) > 0
+                if mode and not interior:
+                    i2, j2 = i // 2, j // 2
+                    for k in range(MINB // 2):
+                        p1, p0 = int(recC[i2 + k, j2 - 2]), int(recC[i2 + k, j2 - 1])
+                        q0, q1 = int(recC[i2 + k, j2]), int(recC[i2 + k, j2 + 1])
+                        delta = (4 * (q0 - p0) + (p1 - q1) + 4) >> 3
+                        delta = max(-tc, min(tc, delta))
+                        recC[i2 + k, j2 - 1] = min(255, max(0, p0 + delta))
+                        recC[i2 + k, j2] = min(255, max(0, q0 - delta))
+        # horizontal
+        for i in range(MINB, height, MINB):
+            for j in range(0, width, MINB):
+                qr, qc = i // MINP, j // MINP
+                q_size = int(dd.size[qr, qc])
+                mode = dd.mode[qr - 1, qc] == 1 or dd.mode[qr, qc] == 1
+                interior = (i % q_size) > 0
+                if mode and not interior:
+                    i2, j2 = i // 2, j // 2
+                    for l in range(MINB // 2):
+                        p1, p0 = int(recC[i2 - 2, j2 + l]), int(recC[i2 - 1, j2 + l])
+                        q0, q1 = int(recC[i2, j2 + l]), int(recC[i2 + 1, j2 + l])
+                        delta = (4 * (q0 - p0) + (p1 - q1) + 4) >> 3
+                        delta = max(-tc, min(tc, delta))
+                        recC[i2 - 1, j2 + l] = min(255, max(0, p0 + delta))
+                        recC[i2, j2 + l] = min(255, max(0, q0 - delta))
+
+
+def clpf_block(src: np.ndarray, x0: int, y0: int, size: int, dstride: int,
+               width: int, height: int) -> np.ndarray:
+    """Constrained low-pass filter for one block
+    (common/common_block.c:180-197). Returns the filtered (size,size) tile.
+
+    src: full plane; boundary neighbors clamp at the dstride-aligned block.
+    """
+    left = x0 & ~(dstride - 1)
+    top = y0 & ~(dstride - 1)
+    right = min(width - 1, left + dstride - 1)
+    bottom = min(height - 1, top + dstride - 1)
+
+    X = src[y0:y0 + size, x0:x0 + size].astype(np.int32)
+    ys = np.arange(y0, y0 + size)[:, None]
+    xs = np.arange(x0, x0 + size)[None, :]
+    A = np.where(ys == top, X, src[np.maximum(ys - 1, 0), xs].astype(np.int32))
+    B = np.where(xs == left, X, src[ys, np.maximum(xs - 1, 0)].astype(np.int32))
+    C = np.where(xs == right, X, src[ys, np.minimum(xs + 1, width - 1)].astype(np.int32))
+    D = np.where(ys == bottom, X, src[np.minimum(ys + 1, height - 1), xs].astype(np.int32))
+    delta = (((A > X).astype(np.int32) + (B > X) + (C > X) + (D > X)) > 2).astype(np.int32) \
+        - (((A < X).astype(np.int32) + (B < X) + (C < X) + (D < X)) > 2).astype(np.int32)
+    return (X + delta).astype(np.uint8)
+
+
+def clpf_plane_dense(P: np.ndarray, sbs: int, width: int,
+                     height: int) -> np.ndarray:
+    """Whole-plane CLPF (vectorized clpf_block,
+    common/common_block.c:180-197): every pixel filtered with
+    neighbour clamping at its sbs-aligned block boundary. The caller
+    selects which blocks actually take the filtered value."""
+    X = P.astype(np.int32)
+    ys = np.arange(height)[:, None]
+    xs = np.arange(width)[None, :]
+    up = np.vstack([P[0:1], P[:-1]]).astype(np.int32)
+    down = np.vstack([P[1:], P[-1:]]).astype(np.int32)
+    left = np.hstack([P[:, 0:1], P[:, :-1]]).astype(np.int32)
+    right = np.hstack([P[:, 1:], P[:, -1:]]).astype(np.int32)
+    A = np.where(ys % sbs == 0, X, up)
+    B = np.where(xs % sbs == 0, X, left)
+    C = np.where((xs % sbs == sbs - 1) | (xs == width - 1), X, right)
+    D = np.where((ys % sbs == sbs - 1) | (ys == height - 1), X, down)
+    delta = (((A > X).astype(np.int32) + (B > X) + (C > X)
+              + (D > X)) > 2).astype(np.int32) \
+        - (((A < X).astype(np.int32) + (B < X) + (C < X)
+            + (D < X)) > 2).astype(np.int32)
+    return (X + delta).astype(np.uint8)
 
 
 def pad_plane(plane: np.ndarray, pad: int) -> np.ndarray:

@@ -1,13 +1,15 @@
 """Codec state carried across runs, and across from thor_tpu.
 
-A codec has no weights: its state is the reference window. thor_tpu's
-`save_decoder_state` (utils/checkpoint.py:16) writes an .npz holding
-`ref{i}_y/u/v/num`, `seq` and the optional `interp_*`; load_decoder_state
-reads that file into the port's Decoder. The encoder's snapshot
-(save_encoder_state / load_encoder_state, thor_tpu's :42 / :66) holds
-the padded uint8 planes `ref{i}_y/u/v`, `ref{i}_num` and the sequence
-loop's eight counters `loop` (int64): the same file in both packages, so
-a snapshot of either resumes in the other.
+A codec has no weights: its state is the reference window. The decoder's
+snapshot (save_decoder_state / load_decoder_state, thor_tpu's
+utils/checkpoint.py:16 / :85) is an .npz holding the codec-padded uint8
+planes `ref{i}_y/u/v` with their display numbers `ref{i}_num`, the
+sequence header `seq` (11 int64) and the optional interpolated reference
+`interp_*`. The encoder's snapshot (save_encoder_state /
+load_encoder_state, thor_tpu's :42 / :66) holds the same reference planes
+and the sequence loop's eight counters `loop` (int64). Each file is the
+same in both packages, so a snapshot of either resumes in the other, on
+either of the port's decode backends.
 """
 
 from __future__ import annotations
@@ -18,50 +20,85 @@ import torch
 from ..codec.constants import PAD_C, PAD_Y
 from ..dec.decoder import RefFrame
 from ..dec.parse import SequenceHeader
-from ..ops.kernels import edge_pad
+from ..dec.reconstruct_np import RefFrame as NpRefFrame
+
+SEQ_FIELDS = ("width", "height", "pb_split", "tb_split_enable",
+              "max_num_ref", "interp_ref", "max_delta_qp", "deblocking",
+              "clpf", "use_block_contexts", "bipred")
 
 
-def _plane(a, h, w, pad, device):
-    """Saved plane -> codec-padded uint8 tensor on `device`; accepts the
-    plane either padded (as thor_tpu's numpy decoder keeps it) or not."""
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def save_decoder_state(dec, path: str):
+    """Snapshot a Decoder (either backend) after any number of frames: its
+    reference window and interpolated reference (padded planes, read back
+    from the device on the torch backend) and its sequence header."""
+    arrs = {}
+    for i, r in enumerate(dec.refs):
+        if r is None:
+            continue
+        arrs[f"ref{i}_y"], arrs[f"ref{i}_u"], arrs[f"ref{i}_v"] = \
+            _host(r.y), _host(r.u), _host(r.v)
+        arrs[f"ref{i}_num"] = np.int64(r.frame_num)
+    r = dec.interp_frame
+    if r is not None:
+        arrs["interp_y"], arrs["interp_u"], arrs["interp_v"] = \
+            _host(r.y), _host(r.u), _host(r.v)
+        arrs["interp_num"] = np.int64(r.frame_num)
+    arrs["seq"] = np.array([getattr(dec.seq, f) for f in SEQ_FIELDS],
+                           np.int64)
+    np.savez_compressed(path, **arrs)
+
+
+def _padded(a, h, w, pad):
+    """Saved plane -> codec-padded uint8 array; accepts the plane either
+    padded (as both packages save it) or not."""
     a = np.asarray(a, np.uint8)
-    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
     if a.shape == (h, w):
-        return edge_pad(t, pad)
+        return np.pad(a, pad, mode="edge")
     if a.shape != (h + 2 * pad, w + 2 * pad):
         raise ValueError(f"reference plane of shape {a.shape} does not "
                          f"fit a {w}x{h} sequence")
-    return t
+    return np.ascontiguousarray(a)
 
 
-def _ref(z, key, seq, device):
+def _ref(z, key, seq, dec):
     H, W = seq.height, seq.width
-    return RefFrame(_plane(z[f"{key}_y"], H, W, PAD_Y, device),
-                    _plane(z[f"{key}_u"], H // 2, W // 2, PAD_C, device),
-                    _plane(z[f"{key}_v"], H // 2, W // 2, PAD_C, device),
-                    int(z[f"{key}_num"]))
+    planes = (_padded(z[f"{key}_y"], H, W, PAD_Y),
+              _padded(z[f"{key}_u"], H // 2, W // 2, PAD_C),
+              _padded(z[f"{key}_v"], H // 2, W // 2, PAD_C))
+    num = int(z[f"{key}_num"])
+    if dec.backend == "numpy":
+        r = NpRefFrame.__new__(NpRefFrame)      # the planes are padded
+        r.y, r.u, r.v = planes
+        r.frame_num = num
+        return r
+    return RefFrame(*(torch.from_numpy(p).to(dec.device) for p in planes),
+                    num)
 
 
 def load_decoder_state(dec, path: str):
-    """Restore `dec` (a thor_tpu_torch Decoder) from a thor_tpu decoder
-    snapshot. Decoding continues with `dec.decode_payloads` on the
-    remaining frame payloads. The snapshot holds no output position, so
-    the next frame to output is taken as the first display number missing
-    from the saved window, counting up from its oldest frame; window frames
-    past it were decoded ahead of their turn (RA / HDB) and go to
-    `dec.pending`. Exact while the reorder depth stays below the window's
-    33 frames."""
+    """Restore `dec` (a thor_tpu_torch Decoder, either backend) from a
+    decoder snapshot of either package. Decoding continues with
+    `dec.decode_payloads` on the remaining frame payloads. The snapshot
+    holds no output position, so the next frame to output is taken as the
+    first display number missing from the saved window, counting up from
+    its oldest frame; window frames past it were decoded ahead of their
+    turn (RA / HDB) and go to `dec.pending`. Exact while the reorder depth
+    stays below the window's 33 frames."""
     with np.load(path) as z:
         dec.start(SequenceHeader(*(int(x) for x in z["seq"])))
         refs = list(dec.refs)
         loaded = []
         for i in range(len(refs)):
             if f"ref{i}_y" in z:
-                refs[i] = _ref(z, f"ref{i}", dec.seq, dec.device)
+                refs[i] = _ref(z, f"ref{i}", dec.seq, dec)
                 loaded.append(refs[i])
         dec.refs = refs
         if "interp_y" in z:
-            dec.interp_frame = _ref(z, "interp", dec.seq, dec.device)
+            dec.interp_frame = _ref(z, "interp", dec.seq, dec)
     have = {r.frame_num: r for r in reversed(loaded)}     # newest wins
     n = min(have)
     while n in have:
