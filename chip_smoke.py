@@ -72,10 +72,27 @@ Phases (any failure exits nonzero):
      search and filter seconds of every frame and the CIF fps; one CIF P
      frame under torch.profiler (device busy and idle share); a mirror
      encode (host_ldb_qcif) and a device encode (ldb_qcif) split at a
-     checkpoint after frame 1 and resumed, equal to their goldens;
+     checkpoint after frame 1 and resumed, equal to their goldens. Then
+     the parallel paths (thor_tpu_torch/parallel), slots as streams of the
+     one card: ShardedDecoder on the 1080p RA16 stream at meshes 1x1, 2x1,
+     4x1, 2x2 and 1x4, each equal to its sha256 with thor_tpu's dependency
+     levels (testdata/torch_levels.json) and the counters around it
+     (kernels 1-5, no plain call), with fps beside the Decoder's in the
+     same rounds; the 1080p LDB stream at 1x2 and 1x4; the 4x1 decode and
+     a Decoder decode under torch.profiler (device busy and idle share,
+     the ms in which kernels of two or more streams overlap, launches);
+     RA16_long through `python -m thor_tpu_torch.dec --mesh 4x2` (sha256,
+     a level of 8); kernels 1 and 3 each on two streams at once, 20 times,
+     against their plain versions; two gloo processes of
+     parallel/worker.py on the card (DIST_OK); ShardedEncoder on two
+     streams: ldb_qcif and ra_qcif byte for byte, and a 5-frame 1080p RA
+     form (I P B B B) equal to the sequential Encoder's bytes in the same
+     call, with both encodes' seconds and stage times, decoded back to
+     its reconstruction;
   5. a {"kernels": [...]} JSON line (six kernels; mc_frame and encode_scan
      with their launches in the P/B encode; each with its launches over
-     the mirror encodes and over the two collect_stats decodes);
+     the mirror encodes, over the two collect_stats decodes, over the 4x1
+     sharded RA16 decode and over the sharded 1080p RA-form encode);
   6. last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or thor_tpu. Without a CUDA device it exits 1 and
 prints no result.
@@ -1669,6 +1686,369 @@ def phase_encode_host(dev, card, out_dir):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the parallel paths: ShardedDecoder over a gop x tile mesh of streams, two
+# wavefronts at once, two processes on the card, ShardedEncoder
+# ---------------------------------------------------------------------------
+
+SHARDED_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2), (1, 4))
+DEC_KERNELS = ("mc_frame", "intra_scan") + SYNTH
+ENC_KERNELS = ("mc_frame", "encode_scan") + SYNTH
+RA_FORM = dict(width=1920, height=1080, num_frames=5, qp=32, device_encode=1,
+               max_num_ref=2, enable_bipred=1, num_reorder_pics=3,
+               interp_ref=1, use_block_contexts=1, encoder_speed=0)
+
+
+def golden_sha(path):
+    return path.with_name(path.stem + "_dec.sha256").read_text().split()[0]
+
+
+def sharded_decode(path, gop, tile):
+    """(frames, sha256, level sizes) of one ShardedDecoder decode on the
+    card (gop x tile slots as streams of the one card); fails if an MC
+    window left the padded plane."""
+    from thor_tpu_torch.parallel.stream import ShardedDecoder
+    sd = ShardedDecoder(gop=gop, tile=tile)
+    h = hashlib.sha256()
+    n = 0
+    for planes in sd.iter_frames(str(path)):
+        for p in planes:
+            h.update(p.tobytes())
+        n += 1
+    if sd.mc_clamped:
+        raise AssertionError(f"{path.name}: MC windows left the padded "
+                             "reference plane")
+    return n, h.hexdigest(), list(sd.last_level_sizes)
+
+
+def counted_sharded(path, gop, tile, must, levels, card):
+    """One sharded decode with every counter set to 0 just before and read
+    just after: the golden's sha256, thor_tpu's level sizes, the kernels in
+    `must` launched and no plain version called. Returns the launches."""
+    zero_counters()
+    n, sha, lv = sharded_decode(path, gop, tile)
+    launches, plain = read_counters()
+    ok = (sha == golden_sha(path) and lv == levels[path.stem]
+          and all(launches[k] for k in must) and not any(plain.values()))
+    log(f"[parallel] {path.name} mesh {gop}x{tile} ({gop * tile} streams on "
+        f"one card): {n} frames sha256 {'matches' if ok else 'DIFFERS'}; "
+        f"levels {lv} (thor_tpu: {levels[path.stem]}); launches {launches}; "
+        f"plain calls {sum(plain.values())}; card {card}")
+    if not ok:
+        raise AssertionError(f"{path.name} at {gop}x{tile}: golden, levels "
+                             f"or kernels {must} wrong")
+    return launches
+
+
+def timed_sharded(path, gop, tile):
+    """fps of one warm sharded decode, host clock ending in
+    torch.cuda.synchronize(), the sha256 checked."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n, sha, _ = sharded_decode(path, gop, tile)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if sha != golden_sha(path):
+        raise AssertionError(f"timed sharded decode of {path.name} differs")
+    return n / dt
+
+
+def timed_decoder(path, dev):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n, sha, _ = decode(path, dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if sha != golden_sha(path):
+        raise AssertionError(f"timed decode of {path.name} differs")
+    return n / dt
+
+
+def stream_overlap(trace_path):
+    """From a torch.profiler chrome trace: (device busy ms: the union of
+    kernel, copy and memset intervals; ms in which kernels of two or more
+    streams run at once; kernel launches; streams with kernels)."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    gpu = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+
+    def union(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    busy = sum(b - a for a, b in union(
+        [(e["ts"], e["ts"] + e["dur"]) for e in gpu]))
+    by_stream = {}
+    for e in gpu:
+        if e["cat"] == "kernel":
+            by_stream.setdefault(e["args"].get("stream"), []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    edges = []
+    for iv in by_stream.values():
+        for a, b in union(iv):
+            edges += [(a, 1), (b, -1)]
+    edges.sort()
+    overlap, depth, last = 0.0, 0, None
+    for t, d in edges:
+        if depth >= 2:
+            overlap += t - last
+        depth += d
+        last = t
+    launches = sum(len(v) for v in by_stream.values())
+    return busy / 1e3, overlap / 1e3, launches, len(by_stream)
+
+
+def profiled_sharded(out_dir, levels, dev, card):
+    """One 4x1 RA16 decode under torch.profiler (CPU + CUDA), and one
+    Decoder decode counted the same way: device busy and idle share, the
+    ms in which kernels of two or more streams overlap, the launches."""
+    from torch.profiler import ProfilerActivity, profile
+    runs = (("ShardedDecoder 4x1",
+             lambda: sharded_decode(STREAM_RA_1080, 4, 1)[1:]),
+            ("Decoder", lambda: (decode(STREAM_RA_1080, dev)[1],
+                                 levels[STREAM_RA_1080.stem])))
+    for what, run in runs:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sha, lv = run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        trace = out_dir / "profile.json"
+        prof.export_chrome_trace(str(trace))
+        busy, overlap, launches, streams = stream_overlap(trace)
+        log(f"[parallel] {STREAM_RA_1080.name} {what} under torch.profiler: "
+            f"wall {wall:.1f} ms, device busy {busy:.3f} ms, idle "
+            f"{max(0.0, 1 - busy / wall) * 100:.2f} %; kernels of two or "
+            f"more streams overlap for {overlap:.3f} ms "
+            f"({overlap / busy * 100:.2f} % of busy); {launches} kernel "
+            f"launches on {streams} streams; card {card}")
+        if sha != golden_sha(STREAM_RA_1080) or \
+                lv != levels[STREAM_RA_1080.stem]:
+            raise AssertionError(f"the profiled {what} decode differs")
+
+
+def two_wavefronts(dev, card, repeats=20):
+    """Kernels 1 (the 1080p I frame's Y and U+V records) and 3 (level 0 of
+    the first interpolated 1080p frame) each on two streams at once,
+    `repeats` times; every result equals the plain version."""
+    from thor_tpu_torch.dec.reconstruct import residual_planes
+    from thor_tpu_torch.ops import interp as TI
+    from thor_tpu_torch.ops import intra as IT
+
+    _, _, (cfg0, inp0), _ = first_frames(dev)
+    H, W = cfg0.H, cfg0.W
+    ry, rc = residual_planes(cfg0, inp0, dev)
+    scans = (((torch.zeros((1, H, W), dtype=torch.int32, device=dev),
+               ry[None].contiguous(), inp0["it_y"])),
+             (torch.zeros((2, H // 2, W // 2), dtype=torch.int32,
+                          device=dev), rc, inp0["it_c"]))
+    calls = []
+    r0, r1, ratio, pos = first_interp_pair(dev)
+    TI.level0_motion(r0, r1, ratio, pos, on_level=lambda *c: calls.append(c))
+    _, a0, kw0, _ = calls[-1]
+    assert kw0["w"] == W and kw0["h"] == H
+    jobs = {"intra_scan": (lambda k: IT.intra_scan(*scans[k]),
+                           [IT.intra_scan_plain(*sc) for sc in scans]),
+            "me_level": (lambda k: TI.me_level(*a0, **kw0),
+                         [TI.me_level_plain(*a0, **kw0)] * 2)}
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    for kname, (run, want) in jobs.items():
+        t0 = time.perf_counter()
+        equal = 0
+        for _ in range(repeats):
+            ready = torch.cuda.Event()
+            ready.record()
+            outs = []
+            for k, s in enumerate(streams):
+                s.wait_event(ready)
+                with torch.cuda.stream(s):
+                    outs.append(run(k))
+            torch.cuda.synchronize()
+            equal += all(
+                all(torch.equal(g, w) for g, w in zip(
+                    o if isinstance(o, tuple) else (o,),
+                    v if isinstance(v, tuple) else (v,)))
+                for o, v in zip(outs, want))
+        log(f"[parallel] {kname} on two streams at once "
+            f"({'Y and U+V of the 1080p I frame' if kname == 'intra_scan' else 'level 0 of the first interpolated 1080p frame, twice'}):"
+            f" {equal} of {repeats} equal to the plain version "
+            f"({time.perf_counter() - t0:.2f} s host clock); card {card}")
+        if equal != repeats:
+            raise AssertionError(f"{kname}: two at once differ from plain")
+
+
+def two_processes(card):
+    """parallel/worker.py in two processes on the one card (gloo carries
+    host planes): LDB_low_complexity, each process gop row of a 2x1 mesh;
+    both must print DIST_OK with the golden's sha256."""
+    import socket
+    gold = TESTDATA / "LDB_low_complexity_dec.yuv"
+    want = hashlib.sha256(gold.read_bytes()).hexdigest()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        coord = f"localhost:{sk.getsockname()[1]}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "thor_tpu_torch.parallel.worker", coord, "2",
+         str(pid), str(TESTDATA / "LDB_low_complexity.bit"), str(gold)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(HERE)) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ok = all(p.returncode == 0 and f"DIST_OK {want}" in o
+             for p, o in zip(procs, outs))
+    log(f"[parallel] two processes (gloo, one card) on LDB_low_complexity: "
+        f"{'both DIST_OK ' + want if ok else 'FAILED'} "
+        f"({time.perf_counter() - t0:.1f} s with start-up); card {card}")
+    if not ok:
+        raise AssertionError("two-process decode failed:\n"
+                             + "\n".join(o[-2000:] for o in outs))
+
+
+def sharded_encode(params, frames, out, slots=2):
+    """(reconstructions, seconds, ShardedEncoder) of one encode on `slots`
+    streams of the card."""
+    from thor_tpu_torch.parallel.encode import ShardedEncoder
+    se = ShardedEncoder(params, devices=["cuda:0"] * slots)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = se.encode_sequence(frames, str(out))
+    torch.cuda.synchronize()
+    return rec, time.perf_counter() - t0, se
+
+
+def phase_parallel(dev, card, out_dir):
+    """The parallel paths on the one card. Returns the launches of the 4x1
+    RA16 decode and of the 1080p RA-form sharded encode by kernel."""
+    from thor_tpu_torch.enc.encoder import Encoder
+    from tools.gen_torch_enc_goldens import golden_path, load_frames
+    from tools.gen_torch_levels import load_levels
+
+    t_phase = time.perf_counter()
+    levels = load_levels()
+    launches_ra = {}
+    for gop, tile in SHARDED_MESHES:
+        launches_ra[gop, tile] = counted_sharded(STREAM_RA_1080, gop, tile,
+                                                 DEC_KERNELS, levels, card)
+    # tile 1 is reconstruct_frame: the Decoder's launches, on any gop
+    _, _, launches_dec = counted_decode(STREAM_RA_1080, dev, DEC_KERNELS)
+    if not launches_ra[1, 1] == launches_ra[2, 1] == launches_ra[4, 1] \
+            == launches_dec:
+        raise AssertionError("a tile-1 sharded decode launched other "
+                             "kernels than the Decoder")
+    fps = {"Decoder": []}
+    for _ in range(FPS_REPEATS):
+        fps["Decoder"].append(timed_decoder(STREAM_RA_1080, dev))
+        for m in ((1, 1), (4, 1)):
+            fps.setdefault(m, []).append(timed_sharded(STREAM_RA_1080, *m))
+    for m in SHARDED_MESHES:
+        if m not in fps:
+            fps[m] = [timed_sharded(STREAM_RA_1080, *m)]
+    for k, v in fps.items():
+        med = sorted(v)[len(v) // 2]
+        what = "Decoder (native route, pipelined)" if k == "Decoder" \
+            else f"ShardedDecoder {k[0]}x{k[1]}"
+        log(f"[parallel] {STREAM_RA_1080.name} {what}: fps={med:.3f} "
+            f"({len(v)} warm decodes: {', '.join(f'{x:.3f}' for x in v)}; "
+            f"host clock, each ends in torch.cuda.synchronize()); card "
+            f"{card}")
+    for m in ((1, 2), (1, 4)):
+        counted_sharded(STREAM_1080, *m, ("mc_frame", "intra_scan"), levels,
+                        card)
+    profiled_sharded(out_dir, levels, dev, card)
+
+    # RA16_long at 4x2 (8 streams) through the CLI
+    out = out_dir / "ra16_long.yuv"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "thor_tpu_torch.dec",
+                        str(TESTDATA / "RA16_long.bit"), str(out), "--mesh",
+                        "4x2"], capture_output=True, text=True, cwd=str(HERE),
+                       timeout=300)
+    line = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    lv = json.loads(line.split("gop-level batches=")[1][:-1]) \
+        if "gop-level batches=" in line else []
+    ok = (r.returncode == 0 and out.exists()
+          and hashlib.sha256(out.read_bytes()).hexdigest()
+          == (TESTDATA / "RA16_long_dec.sha256").read_text().split()[0]
+          and lv == levels["RA16_long"] and max(lv) >= 8)
+    log(f"[parallel] RA16_long via `python -m thor_tpu_torch.dec --mesh "
+        f"4x2`: {line!r}; output {'matches' if ok else 'DIFFERS FROM'} its "
+        f"sha256; widest level {max(lv) if lv else None} "
+        f"({time.perf_counter() - t0:.1f} s with start-up); card {card}")
+    if not ok:
+        raise AssertionError(f"RA16_long --mesh 4x2 failed:\n{r.stdout}\n"
+                             f"{r.stderr[-3000:]}")
+
+    two_wavefronts(dev, card)
+    two_processes(card)
+
+    # ShardedEncoder on two streams: the thor_tpu streams byte for byte
+    for name in ("ldb_qcif", "ra_qcif"):
+        fields, fr = load_frames(name)
+        zero_counters()
+        _, dt, _ = sharded_encode(enc_params(fields), fr,
+                                  out_dir / f"par_{name}.bit")
+        launches, plain = read_counters()
+        must = ("mc_frame", "encode_scan") + (SYNTH if name == "ra_qcif"
+                                              else ())
+        same = (out_dir / f"par_{name}.bit").read_bytes() == \
+            golden_path(name).read_bytes()
+        log(f"[parallel] ShardedEncoder (2 streams) {name}: "
+            f"{'equal to' if same else 'DIFFERS FROM'} "
+            f"{golden_path(name).name}; {dt:.2f} s; launches {launches}; "
+            f"plain calls {sum(plain.values())}")
+        if not same or not all(launches[k] for k in must) \
+                or any(plain.values()):
+            raise AssertionError(f"ShardedEncoder {name} failed")
+
+    # the 1080p RA form: sequential Encoder, then ShardedEncoder
+    fr = frames_1080(RA_FORM["num_frames"])
+    seq_out, par_out = out_dir / "ra_form_seq.bit", out_dir / "ra_form.bit"
+    enc = Encoder(enc_params(RA_FORM))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec_seq = enc.encode_sequence(fr, str(seq_out))
+    torch.cuda.synchronize()
+    dt_seq = time.perf_counter() - t0
+    zero_counters()
+    rec, dt, se = sharded_encode(enc_params(RA_FORM), fr, par_out)
+    launches_enc, plain = read_counters()
+    same = seq_out.read_bytes() == par_out.read_bytes() and all(
+        np.array_equal(a, b) for x, y in zip(rec, rec_seq)
+        for a, b in zip(x, y)) and len(rec) == len(rec_seq) == 5
+    for what, e, t in (("Encoder", enc, dt_seq), ("ShardedEncoder", se.enc,
+                                                  dt)):
+        log(f"[parallel] 1080p RA-form encode, {what}: {t:.3f} s for 5 "
+            f"frames ({5 / t:.4f} fps, host clock); stages (s) by coded "
+            f"frame: " + "; ".join(
+                f"{i}: " + ", ".join(f"{k} {v:.3f}" for k, v in ft.items()
+                                     if isinstance(v, float))
+                for i, ft in enumerate(e.frame_times)))
+    log(f"[parallel] 1080p RA-form ShardedEncoder (2 streams): "
+        f"{par_out.stat().st_size} bytes {'equal to' if same else 'DIFFER FROM'}"
+        f" the sequential Encoder's; launches {launches_enc}; plain calls "
+        f"{sum(plain.values())}; card {card}")
+    if not same or not all(launches_enc[k] for k in ENC_KERNELS) \
+            or any(plain.values()):
+        raise AssertionError("the 1080p RA-form ShardedEncoder differs from "
+                             "the Encoder or missed its kernels")
+    decode_equals(par_out, rec, dev, "1080p RA-form sharded encode")
+    log(f"[parallel] parallel phase: {time.perf_counter() - t_phase:.1f} s "
+        f"in all (host clock); card {card}")
+    return launches_ra[4, 1], launches_enc
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1696,6 +2076,7 @@ def main():
         launches_enc = phase_encode(dev, card, Path(tmp))
         launches_pb = phase_encode_pb(dev, card, Path(tmp))
         launches_host = phase_encode_host(dev, card, Path(tmp))
+        launches_sh_ra, launches_sh_enc = phase_parallel(dev, card, Path(tmp))
 
     pi = "thor_tpu/ops/pallas_interp.py"
     meta = {
@@ -1724,6 +2105,8 @@ def main():
             **({"launches_pb_encode": launches_pb[name]}
                if name in ("mc_frame", "encode_scan") else {}),
             "launches_host_encode": launches_host[name],
+            "launches_sharded_ra16": launches_sh_ra[name],
+            "launches_sharded_encode": launches_sh_enc[name],
             "max_abs_err": max_err[name],
             "ms": sum(x[0] for x in r), "plain_ms": sum(x[1] for x in r),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
@@ -1741,7 +2124,10 @@ def main():
         f"over the 3-frame 1080p all-intra encode (launches_pb_encode: "
         f"mc_frame and encode_scan over the 4-frame 1080p LDB-form encode; "
         f"launches_host_encode: each kernel over the four host mirror "
-        f"encodes, the synthesis on host_ra_qcif); {smi_line}")
+        f"encodes, the synthesis on host_ra_qcif; launches_sharded_ra16: "
+        f"each kernel over the 4x1 ShardedDecoder decode of RA16; "
+        f"launches_sharded_encode: each kernel over the 1080p RA-form "
+        f"ShardedEncoder encode on two streams); {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -11,6 +11,8 @@ import torch
 from thor_tpu_torch.dec.decoder import Decoder, decode_file
 from thor_tpu_torch.device import resolve_device
 from thor_tpu_torch.enc.encoder import Encoder, EncoderParams, encode_file
+from thor_tpu_torch.parallel.encode import ShardedEncoder
+from thor_tpu_torch.parallel.stream import ShardedDecoder
 
 from .conftest import REPO, TESTDATA
 
@@ -34,15 +36,19 @@ def test_port_imports_no_jax_and_no_thor_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     out = r.stdout.split()
-    assert int(out[0]) >= 47       # the enc package, host mirror and
-    #                                 the numpy decode backend included
+    assert int(out[0]) >= 52       # the enc package, host mirror, the
+    #                                 numpy decode backend and the
+    #                                 parallel paths included
     assert {"thor_tpu_torch.enc.host", "thor_tpu_torch.enc.inter",
             "thor_tpu_torch.enc.quant", "thor_tpu_torch.ops.np_kernels",
             "thor_tpu_torch.utils.checkpoint",
             "thor_tpu_torch.dec.native_adapter",
             "thor_tpu_torch.dec.syntax_inputs",
             "thor_tpu_torch.dec.reconstruct_np",
-            "thor_tpu_torch.ops.temporal_interp"} <= set(out)
+            "thor_tpu_torch.ops.temporal_interp",
+            "thor_tpu_torch.parallel.mesh", "thor_tpu_torch.parallel.stream",
+            "thor_tpu_torch.parallel.encode",
+            "thor_tpu_torch.parallel.worker"} <= set(out)
 
 
 def test_entry_points_raise_without_a_card(tmp_path):
@@ -56,6 +62,10 @@ def test_entry_points_raise_without_a_card(tmp_path):
         Encoder(EncoderParams(width=64, height=64, device_encode=1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Encoder(EncoderParams(width=64, height=64))     # the host mirror
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedDecoder()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedEncoder(EncoderParams(width=64, height=64, device_encode=1))
     cfg = tmp_path / "enc.cfg"
     cfg.write_text("-device_encode 1 -intra_period 1\n")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -2,6 +2,7 @@
 
 Usage: python -m thor_tpu_torch.dec in.bit out.yuv [--backend torch|numpy]
                                                   [--device cpu|cuda]
+                                                  [--mesh GxT]
 
 Decodes on the card by default (--backend torch); --device cpu runs the
 kernels' plain PyTorch versions on the CPU; --backend numpy runs the exact
@@ -9,6 +10,9 @@ host oracle and uses no device. After the timing line it prints the
 reference's bit and mode statistics (bit_count_t, dec/maindec.c:197-329)
 text for text as `python -m thor_tpu.dec` does; they come from the
 instrumented Python parser, which the decoder therefore always uses here.
+--mesh decodes through the gop x tile sharded decoder (parallel/stream.py)
+and prints, as thor_tpu's CLI does, one line with the level sizes and no
+statistics.
 """
 
 from __future__ import annotations
@@ -130,7 +134,29 @@ def main(argv=None):
     ap.add_argument("output")
     ap.add_argument("--backend", choices=("torch", "numpy"), default="torch")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", metavar="GxT",
+                    help="decode through the gop x tile sharded decoder "
+                         "(parallel/stream.py), e.g. --mesh 2x4; slots "
+                         "share the visible cards on streams of their own "
+                         "(on --device cpu, CPU slots)")
     args = ap.parse_args(argv)
+
+    if args.mesh is not None:
+        from ..parallel.stream import ShardedDecoder
+        gop, tile = (int(x) for x in args.mesh.split("x"))
+        devices = None if args.device == "cuda" else [args.device]
+        sd = ShardedDecoder(gop=gop, tile=tile, devices=devices)
+        n = 0
+        t0 = time.perf_counter()
+        with open(args.output, "wb") as out:
+            for (y, u, v) in sd.iter_frames(args.bitstream):
+                out.write(y.tobytes() + u.tobytes() + v.tobytes())
+                n += 1
+        dt = time.perf_counter() - t0
+        print(f"decoded {n} frames in {dt:.2f}s "
+              f"({n / dt:.2f} frames/s, mesh={gop}x{tile}, "
+              f"gop-level batches={sd.last_level_sizes})")
+        return 0
 
     from .decoder import Decoder
 

@@ -22,3 +22,14 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def check_current(fn: str, dev: torch.device):
+    """A kernel wrapper's check that its tensors lie on the current CUDA
+    device: the kernels are ctypes calls that launch on the calling
+    thread's current device, which must not read another card's memory."""
+    cur = torch.cuda.current_device()
+    if dev.index != cur:
+        raise ValueError(f"{fn}: the tensors lie on {dev} but the current "
+                         f"CUDA device is cuda:{cur}; call it under "
+                         f"torch.cuda.device({dev})")

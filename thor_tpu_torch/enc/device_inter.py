@@ -61,8 +61,10 @@ I32 = torch.int32
 
 
 def _sync(dev):
+    """Wait for the current stream of `dev`: a stage's time ends there,
+    and frames on other streams go on."""
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
 
 
 # ---------------------------------------------------------------------------

@@ -296,6 +296,10 @@ class Encoder:
         self.rec_y = self.rec_u = self.rec_v = None
         self.org_y = self.org_u = self.org_v = None
         self.mirror = HostMirror(self)
+        # the GOP-parallel planner (parallel/encode.py) sets _defer_interp:
+        # _synth_interp then records its arguments in _pending_interp
+        self._defer_interp = False
+        self._pending_interp = None
 
     def store_deblock_data(self, binfo):
         """copy_deblock_data (enc/encode_block.c) on final encode."""
@@ -400,8 +404,9 @@ class Encoder:
             t.to(torch.uint8) for t in (y, u, v))
         if self.device.type == "cuda":
             # the sequence loop reads the frame back right after this, so
-            # waiting here costs nothing and closes the stage's time
-            torch.cuda.synchronize(self.device)
+            # waiting here costs nothing and closes the stage's time; only
+            # this stream, so frames on other streams go on
+            torch.cuda.current_stream(self.device).synchronize()
         self.frame_times[-1]["filters"] = time.perf_counter() - t0
 
     def _deblock_fields(self):
@@ -785,7 +790,15 @@ class Encoder:
         """The interpolated reference of a B frame, synthesized from window
         frames r1 and r2 on the encoder's device exactly as the decoder
         resynthesizes it (common/temporal_interp.c:972-1053; on a card the
-        ME and synthesis kernels of ops/interp)."""
+        ME and synthesis kernels of ops/interp).
+
+        With _defer_interp set (the GOP-parallel planner), only the
+        reference objects and the position are recorded, in
+        _pending_interp: the planner synthesizes the frame once both
+        references are made (thor_tpu/enc/encoder.py:1055-1070)."""
+        if self._defer_interp:
+            self._pending_interp = (self.refs[r1], self.refs[r2], ratio, pos)
+            return
         out = interpolate_frames(self.refs[r1], self.refs[r2], ratio, pos)
         self.interp_frame = RefFrame.of_padded(out[3], out[4], out[5],
                                                self.frame_num)

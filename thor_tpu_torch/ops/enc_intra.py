@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..codec.constants import GDEQUANT_TABLE, GQUANT_TABLE, zigzag_for
+from ..device import check_current
 from . import _build
 from . import kernels as K
 from .intra import NF, PADE, PADI, _predict, tu_context
@@ -106,6 +107,7 @@ def encode_scan(planes, org, recs, qp: int, fast: bool, intra: bool):
         return encode_scan_plain(planes, org, recs, qp, fast, intra)
     if planes.device.type != "cuda":
         raise ValueError(f"encode_scan: unsupported device {planes.device}")
+    check_current("encode_scan", planes.device)
     if planes.dim() != 3 or org.shape != planes.shape:
         raise ValueError("encode_scan: planes and org must be [C, H, W]")
     for name, t in (("planes", planes), ("org", org), ("recs", recs)):

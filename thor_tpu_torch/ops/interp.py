@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from ..device import check_current
 from . import _build
 from .kernels import edge_pad
 
@@ -444,6 +445,7 @@ def _check(fn: str, dev, tensors):
     that type and shape; the kernels take nothing else."""
     if dev.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {dev}")
+    check_current(fn, dev)
     for name, t, dt, shape in tensors:
         if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
                 or not t.is_contiguous()):

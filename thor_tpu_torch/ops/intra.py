@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import check_current
 from . import _build
 from .kernels import clip255
 
@@ -278,6 +279,7 @@ def intra_scan(planes, resid, recs):
         return intra_scan_plain(planes, resid, recs)
     if planes.device.type != "cuda":
         raise ValueError(f"intra_scan: unsupported device {planes.device}")
+    check_current("intra_scan", planes.device)
     if planes.dim() != 3 or resid.shape != planes.shape:
         raise ValueError("intra_scan: planes and resid must be [C, H, W]")
     for name, t in (("planes", planes), ("resid", resid), ("recs", recs)):

@@ -20,6 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..device import check_current
 from . import _build
 
 NF = 13
@@ -269,6 +270,7 @@ def mc_frame(refs, recs, lut, H: int, W: int):
         return mc_frame_plain(refs, recs, lut, H, W)
     if refs.device.type != "cuda":
         raise ValueError(f"mc_frame: unsupported device {refs.device}")
+    check_current("mc_frame", refs.device)
     C, R, Hp, Wp = refs.shape
     T = int(round(lut.shape[1] ** 0.5))
     if T not in TILE or lut.shape[1] != T * T:
