@@ -50,9 +50,9 @@ Phases (any failure exits nonzero):
      testdata/test_4k.yuv), which the port's decoder must read back to the
      encoder's reconstruction; a CIF encode with the fast transforms
      through the command line; and
-     the three committed thor_tpu all-intra streams
-     (testdata/torch_enc_intra_*.bit), which the card must reproduce byte
-     for byte. Then the encoder's P and B frames: frames 0-3 of the same
+     the five committed thor_tpu all-intra streams
+     (testdata/torch_enc_intra_*.bit, 88x40 and 48x48 among them), which
+     the card must reproduce byte for byte. Then the encoder's P and B frames: frames 0-3 of the same
      1080p crop in the LDB form of LDB_medium_complexity_1080.bit's header
      (I P P P, two references, bipred), each frame with the counters set
      to 0 just before and read just after (mc_frame on every P frame,
@@ -89,10 +89,25 @@ Phases (any failure exits nonzero):
      form (I P B B B) equal to the sequential Encoder's bytes in the same
      call, with both encodes' seconds and stage times, decoded back to
      its reconstruction;
+     Then the measuring tools (thor_tpu_torch/utils): the device-only
+     decode replay (device_decode_fps) of both 1080p streams, every frame's
+     inputs staged on the card and re-dispatched back to back, one wait a
+     round, the last round's planes equal to the sha256 (RA16 through
+     kernels 3-5), with its fps and host waits per frame; the encode replay
+     (device_encode_fps.replay) of the LDB-form encode above, recorded with
+     record=True, every replayed P frame equal to the live reconstruction;
+     the 1080p synthetic inter frame (utils/synth) through kernel 2 and the
+     filters, equal to the plain versions on the CPU, with its steady-state
+     fps; the device encoder on 88x40 and 48x48 (no whole superblock),
+     thor_tpu's bytes, decoded back; scaling_curve on RA16_long at gop 1
+     and 4 (equal to the sha256 and to each other); encode_4k at 2 frames
+     (I P), decoded back exactly, with its end-to-end and replay fps and
+     peak memory; each with the counters around it;
   5. a {"kernels": [...]} JSON line (six kernels; mc_frame and encode_scan
      with their launches in the P/B encode; each with its launches over
      the mirror encodes, over the two collect_stats decodes, over the 4x1
-     sharded RA16 decode and over the sharded 1080p RA-form encode);
+     sharded RA16 decode, over the sharded 1080p RA-form encode, in one
+     round of each replay, per synthetic frame and over the 4K encode);
   6. last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or thor_tpu. Without a CUDA device it exits 1 and
 prints no result.
@@ -1119,11 +1134,8 @@ ENC_CIF_FAST = ["-width", "352", "-height", "288", "-n", "2", "-qp", "32",
 def enc_params(fields):
     """EncoderParams built in code, float fields through float32 as the
     reference stores them."""
-    from thor_tpu_torch.enc.encoder import FLOAT_PARAMS, EncoderParams
-    p = EncoderParams(**fields)
-    for f in FLOAT_PARAMS:
-        setattr(p, f, float(np.float32(getattr(p, f))))
-    return p
+    from thor_tpu_torch.enc.encoder import EncoderParams
+    return EncoderParams.in_code(**fields)
 
 
 def frames_1080(n=3):
@@ -1458,7 +1470,9 @@ def counted_encoder(base):
 
 def phase_encode_pb(dev, card, out_dir):
     """The device encoder's P and B frames. Returns the launches of the
-    1080p LDB-form encode (all frames) by kernel."""
+    1080p LDB-form encode (all frames) by kernel, and that encode's
+    Encoder (record=True: its P frames' records) with its
+    reconstructions."""
     from thor_tpu_torch.enc.encoder import Encoder
     from thor_tpu_torch.utils.profile_encode import ProfiledEncoder
     from thor_tpu_torch.utils.snr import snr_plane
@@ -1468,7 +1482,7 @@ def phase_encode_pb(dev, card, out_dir):
     # frame, then the same encode with every frame under torch.profiler
     frames = frames_1080(4)
     out = out_dir / "enc_1080_pb.bit"
-    enc = counted_encoder(Encoder)(enc_params(ENC_1080_PB))
+    enc = counted_encoder(Encoder)(enc_params(ENC_1080_PB), record=True)
     t0 = time.perf_counter()
     recons = enc.encode_sequence(frames, str(out))
     torch.cuda.synchronize()
@@ -1550,7 +1564,7 @@ def phase_encode_pb(dev, card, out_dir):
         if not same or plain or not all(launches[k] for k in must):
             raise AssertionError(f"{name}: the port's stream differs from "
                                  f"thor_tpu's or skipped a kernel of {must}")
-    return total
+    return total, enc, recons
 
 
 # ---------------------------------------------------------------------------
@@ -2049,6 +2063,152 @@ def phase_parallel(dev, card, out_dir):
     return launches_ra[4, 1], launches_enc
 
 
+# ---------------------------------------------------------------------------
+# the measuring tools: replays, the synthetic frame, sizes below a
+# superblock, the scaling curve, the 4K encode
+# ---------------------------------------------------------------------------
+
+SYNTH_REPS = 20
+
+
+def counted(what, run, must, rounds=1):
+    """run() with every counter set to 0 just before and read just after;
+    every kernel in `must` must have launched and no plain version been
+    called. Returns (run's result, launches per round of `rounds`)."""
+    zero_counters()
+    out = run()
+    torch.cuda.synchronize()
+    launches, plain = read_counters()
+    if not all(launches[k] for k in must) or any(plain.values()) \
+            or any(v % rounds for v in launches.values()):
+        raise AssertionError(f"{what}: launches {launches}, plain calls "
+                             f"{plain}: not through the kernels {must}")
+    return out, {k: v // rounds for k, v in launches.items()}
+
+
+def synthetic_frame(dev, card):
+    """The 1080p synthetic inter frame (utils/synth, thor_tpu's draws):
+    the frame program on the card (kernel 2 and the filters) equal to the
+    plain versions on the same inputs (on the CPU), then SYNTH_REPS frame
+    programs back to back, one wait at the end. Returns launches per
+    frame."""
+    from thor_tpu_torch.dec.reconstruct import mc_luts, reconstruct_frame
+    from thor_tpu_torch.utils.synth import build_synthetic_frame
+    cfg, inp, refs = build_synthetic_frame(1920, 1080, device=dev)
+    luts = mc_luts(0, dev)
+    got, _ = reconstruct_frame(cfg, inp, refs, luts)
+    # the same seed on the CPU: the same frame through the plain versions
+    cfg_c, inp_c, refs_c = build_synthetic_frame(1920, 1080, device="cpu")
+    t0 = time.perf_counter()
+    want, _ = reconstruct_frame(cfg_c, inp_c, refs_c, mc_luts(0, "cpu"))
+    plain_s = time.perf_counter() - t0
+    err = max(int((a.cpu().to(torch.int32) - b.to(torch.int32)).abs().max())
+              for a, b in zip(got, want))
+    for _ in range(3):
+        reconstruct_frame(cfg, inp, refs, luts)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SYNTH_REPS):
+            reconstruct_frame(cfg, inp, refs, luts)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    dt, launches = counted("synthetic 1080p frame", run, ("mc_frame",),
+                           SYNTH_REPS)
+    log(f"[tools] synthetic 1080p inter frame (utils/synth, seed 7, R 2, "
+        f"{len(inp['mc_y'])} luma MC records, no intra TU): the card's "
+        f"planes {'equal' if err == 0 else 'DIFFER FROM'} the plain "
+        f"versions' on the CPU (max |err| {err}; plain {plain_s:.2f} s); "
+        f"steady state {SYNTH_REPS / dt:.3f} fps ({SYNTH_REPS} frame "
+        f"programs back to back, one wait; host clock); launches per frame "
+        f"{launches}; card {card}")
+    if err:
+        raise AssertionError("the synthetic frame differs from its plain "
+                             "version")
+    return launches
+
+
+def phase_tools(dev, card, pb_enc, pb_recons, out_dir):
+    """The measuring tools on the card. Returns the kernels' launches per
+    replay round: {what: {kernel: launches}}."""
+    from thor_tpu_torch.enc.encoder import Encoder
+    from thor_tpu_torch.utils import device_decode_fps as DDF
+    from thor_tpu_torch.utils import device_encode_fps as DEF
+    from thor_tpu_torch.utils import encode_4k as E4K
+    from thor_tpu_torch.utils import scaling_curve as SC
+    from tools.gen_torch_enc_goldens import golden_path, load_frames
+
+    t_phase = time.perf_counter()
+    out = {}
+    # the decode replays: capture, one counted round and FPS_REPEATS timed
+    # rounds dispatch every frame
+    for path, must, key in ((STREAM_1080, ("mc_frame", "intra_scan"),
+                             "decode_replay_ldb"),
+                            (STREAM_RA_1080, DEC_KERNELS,
+                             "decode_replay_ra16")):
+        r, out[key] = counted(
+            path.name, lambda: DDF.measure(path, FPS_REPEATS, dev), must,
+            FPS_REPEATS + 2)
+        log(f"[tools] decode replay {path.name}: {r['frames']} frames "
+            f"({r['interp_frames']} on an interpolated reference) equal to "
+            f"its {r['golden']}; device-only fps={r['device_fps']:.3f} "
+            f"(best of {FPS_REPEATS} rounds, s "
+            f"{', '.join(f'{x:.4f}' for x in r['seconds'])}; host clock, "
+            f"one wait a round); host waits per frame "
+            f"{r['host_waits_per_frame']:.3f} at {r['host_wait_sites']}; "
+            f"launches per round {out[key]}; card {card}")
+    # the encode replay of phase_encode_pb's records (one counted round,
+    # FPS_REPEATS timed)
+    r, out["encode_replay"] = counted(
+        "encode replay", lambda: DEF.replay(pb_enc, pb_recons, FPS_REPEATS),
+        ("mc_frame",), FPS_REPEATS + 1)
+    log(f"[tools] encode replay of the 1080p LDB-form encode: {r['frames']} "
+        f"P frames equal to the live reconstructions; device-only "
+        f"fps={r['device_fps']:.4f} (best of {FPS_REPEATS} rounds, s "
+        f"{', '.join(f'{x:.3f}' for x in r['seconds'])}; host clock, one "
+        f"wait a round); host waits per frame "
+        f"{r['host_waits_per_frame']:.1f} at {r['host_wait_sites']}; "
+        f"launches per round {out['encode_replay']}; card {card}")
+    out["synthetic"] = synthetic_frame(dev, card)
+
+    # frames with no whole superblock: thor_tpu's bytes
+    for name in ("intra_88x40", "intra_48x48"):
+        fields, fr = load_frames(name)
+        got = out_dir / f"enc_{name}.bit"
+        rec, _ = counted(name, lambda: Encoder(enc_params(fields), dev)
+                         .encode_sequence(fr, str(got)), ("encode_scan",))
+        same = got.read_bytes() == golden_path(name).read_bytes()
+        log(f"[tools] {name}: {got.stat().st_size} bytes "
+            f"{'equal to' if same else 'DIFFER FROM'} thor_tpu's "
+            f"{golden_path(name).name}")
+        if not same:
+            raise AssertionError(f"{name}: the port's stream differs")
+        decode_equals(got, rec, dev, name)
+
+    r, _ = counted("scaling curve", lambda: SC.measure(
+        TESTDATA / "RA16_long.bit", (1, 4), dev), DEC_KERNELS)
+    log(f"[tools] scaling_curve RA16_long ({r['frames']} frames, levels "
+        f"{r['levels']}), ShardedDecoder gop x 1 on streams of the card, "
+        f"each equal to the sha256 and to gop 1: " + "; ".join(
+            f"gop {g}: fps={p['fps']:.3f}, speedup {p['speedup']:.3f}, "
+            f"dependency ceiling {p['dependency_ceiling']:.3f}"
+            for g, p in r["points"].items()) + f"; card {card}")
+
+    r, out["encode_4k"] = counted("4K encode", lambda: E4K.measure(
+        2, FPS_REPEATS, dev), ("mc_frame", "encode_scan"))
+    log(f"[tools] encode_4k, 2 frames (I P): {json.dumps(r)}; launches "
+        f"over the encode, its decode and {FPS_REPEATS + 1} replay rounds "
+        f"{out['encode_4k']}; card {card}")
+    if not r["bit_exact_roundtrip"]:
+        raise AssertionError("the 4K stream does not decode to the "
+                             "encoder's reconstruction")
+    log(f"[tools] tools phase: {time.perf_counter() - t_phase:.1f} s in all "
+        f"(host clock); card {card}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2074,9 +2234,12 @@ def main():
     launches_py_ldb, launches_py_ra = phase_python_route(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches_enc = phase_encode(dev, card, Path(tmp))
-        launches_pb = phase_encode_pb(dev, card, Path(tmp))
+        launches_pb, pb_enc, pb_recons = phase_encode_pb(dev, card,
+                                                         Path(tmp))
         launches_host = phase_encode_host(dev, card, Path(tmp))
         launches_sh_ra, launches_sh_enc = phase_parallel(dev, card, Path(tmp))
+        launches_tools = phase_tools(dev, card, pb_enc, pb_recons, Path(tmp))
+        del pb_enc, pb_recons
 
     pi = "thor_tpu/ops/pallas_interp.py"
     meta = {
@@ -2107,6 +2270,7 @@ def main():
             "launches_host_encode": launches_host[name],
             "launches_sharded_ra16": launches_sh_ra[name],
             "launches_sharded_encode": launches_sh_enc[name],
+            **{f"launches_{k}": v[name] for k, v in launches_tools.items()},
             "max_abs_err": max_err[name],
             "ms": sum(x[0] for x in r), "plain_ms": sum(x[1] for x in r),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
@@ -2127,7 +2291,12 @@ def main():
         f"encodes, the synthesis on host_ra_qcif; launches_sharded_ra16: "
         f"each kernel over the 4x1 ShardedDecoder decode of RA16; "
         f"launches_sharded_encode: each kernel over the 1080p RA-form "
-        f"ShardedEncoder encode on two streams); {smi_line}")
+        f"ShardedEncoder encode on two streams; launches_decode_replay_ldb "
+        f"/ _ra16 and launches_encode_replay: each kernel in one replay "
+        f"round of the two 1080p decodes and of the LDB-form encode's P "
+        f"frames; launches_synthetic: per 1080p synthetic frame; "
+        f"launches_encode_4k: over the 2-frame 4K encode, its decode and "
+        f"its replay rounds); {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

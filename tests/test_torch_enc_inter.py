@@ -177,10 +177,13 @@ def test_final_inter_matches_thor_tpu(fx, inp):
         trials[s] = {k[len(pre):]: torch.from_numpy(fx[k]) for k in fx
                      if k.startswith(pre)}
     n0 = MC.mc_frame_plain.calls
-    y, u, v, npu = DI.final_inter(
-        (inp["ref_y"], inp["ref_u"], inp["ref_v"]), leaves, trials, FIX_QP,
-        QPC, inp["sign"].numpy(), inp["sign_bi"].numpy(), mc_luts(1, "cpu"),
-        H, W)
+    plan = DI.final_plan(leaves, inp["sign"].numpy(), inp["sign_bi"].numpy(),
+                         H, W, torch.device("cpu"))
+    plan["intra"] = None        # the inter part alone: 0 on intra leaves
+    y, u, v, _, _ = DI.final_frame(
+        (inp["ref_y"], inp["ref_u"], inp["ref_v"]), None, trials, plan,
+        FIX_QP, QPC, mc_luts(1, "cpu"), False, H, W)
+    npu = plan["npu"]
     assert MC.mc_frame_plain.calls == n0 + 2
     assert npu == sum(lf.mode != 1 for lf in leaves)
     for got, c in ((y, "y"), (u, "u"), (v, "v")):
@@ -192,9 +195,8 @@ def test_final_inter_raises_past_the_clamp(inp):
     and thor_tpu's differ: the port refuses it."""
     lf = DI.Leaf(0, 0, 16, 2, mv=(4 * 60, 0))
     with pytest.raises(RuntimeError, match="clamp"):
-        DI.final_inter((inp["ref_y"], inp["ref_u"], inp["ref_v"]), [lf],
-                       {}, FIX_QP, QPC, np.zeros(2, np.int32),
-                       np.zeros(2, np.int32), mc_luts(1, "cpu"), H, W)
+        DI.final_plan([lf], np.zeros(2, np.int32), np.zeros(2, np.int32), H,
+                      W, torch.device("cpu"))
 
 
 def _walk_inputs(fx, walk=0):

@@ -64,7 +64,12 @@ def test_cpu_encode_equals_thor_tpu_stream(name, tmp_path):
     assert EI.encode_scan_plain.calls == n0 + 2 * len(recons)
     assert EI.encode_scan.launches == l0
     assert _same_frames(decode_file1(str(out), device="cpu"), recons)
-    assert _same_frames(decode_file0(str(out), backend="numpy"), recons)
+    # thor_tpu's native-parse adapter fails on a frame with no whole
+    # superblock (thor_tpu/dec/native_adapter.py:43): parse those in Python
+    small = min(fields["width"], fields["height"]) < 64
+    assert _same_frames(decode_file0(str(out), backend="numpy",
+                                     parse="python" if small else "native"),
+                        recons)
     assert [set(t) for t in enc.frame_times] == [
         {"search", "scan", "emit", "filters", "tus"}] * len(recons)
 
@@ -172,12 +177,20 @@ def test_setup_frame_matches_thor_tpu():
 
 def test_unported_paths_raise():
     """What the port refuses: the device encoder a size that is not a
-    multiple of 8 or holds no whole superblock; the host mirror a size
+    multiple of 8, where thor_tpu's fails, and P or B frames on a frame
+    that holds no whole superblock, where thor_tpu's device ME fails (its
+    all-intra encodes are held to goldens above); the host mirror a size
     that is not a multiple of 8, where thor_tpu's mirror fails."""
-    for w_, h_ in ((60, 64), (88, 40)):   # not 8-aligned; no whole superblock
-        with pytest.raises(ValueError, match="device encoder"):
+    with pytest.raises(ValueError, match="multiples of 8"):
+        E1.Encoder(E1.EncoderParams(width=60, height=64, device_encode=1,
+                                    intra_period=1), device="cpu")
+    for w_, h_ in ((88, 40), (48, 48)):
+        with pytest.raises(ValueError, match="intra_period=1"):
             E1.Encoder(E1.EncoderParams(width=w_, height=h_,
                                         device_encode=1), device="cpu")
+        assert E1.Encoder(E1.EncoderParams(
+            width=w_, height=h_, device_encode=1, intra_period=1),
+            device="cpu").width == w_
     for w_, h_ in ((172, 144), (176, 140)):
         with pytest.raises(ValueError, match="deblocking"):
             E1.Encoder(E1.EncoderParams(width=w_, height=h_), device="cpu")

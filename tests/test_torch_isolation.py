@@ -13,6 +13,8 @@ from thor_tpu_torch.device import resolve_device
 from thor_tpu_torch.enc.encoder import Encoder, EncoderParams, encode_file
 from thor_tpu_torch.parallel.encode import ShardedEncoder
 from thor_tpu_torch.parallel.stream import ShardedDecoder
+from thor_tpu_torch.utils import (device_decode_fps, device_encode_fps,
+                                  encode_4k, encode_scaling, scaling_curve)
 
 from .conftest import REPO, TESTDATA
 
@@ -36,9 +38,9 @@ def test_port_imports_no_jax_and_no_thor_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     out = r.stdout.split()
-    assert int(out[0]) >= 52       # the enc package, host mirror, the
-    #                                 numpy decode backend and the
-    #                                 parallel paths included
+    assert int(out[0]) >= 59       # the enc package, host mirror, the
+    #                                 numpy decode backend, the parallel
+    #                                 paths and the measuring tools included
     assert {"thor_tpu_torch.enc.host", "thor_tpu_torch.enc.inter",
             "thor_tpu_torch.enc.quant", "thor_tpu_torch.ops.np_kernels",
             "thor_tpu_torch.utils.checkpoint",
@@ -48,7 +50,13 @@ def test_port_imports_no_jax_and_no_thor_tpu():
             "thor_tpu_torch.ops.temporal_interp",
             "thor_tpu_torch.parallel.mesh", "thor_tpu_torch.parallel.stream",
             "thor_tpu_torch.parallel.encode",
-            "thor_tpu_torch.parallel.worker"} <= set(out)
+            "thor_tpu_torch.parallel.worker",
+            "thor_tpu_torch.utils.tracing", "thor_tpu_torch.utils.synth",
+            "thor_tpu_torch.utils.device_decode_fps",
+            "thor_tpu_torch.utils.device_encode_fps",
+            "thor_tpu_torch.utils.scaling_curve",
+            "thor_tpu_torch.utils.encode_scaling",
+            "thor_tpu_torch.utils.encode_4k"} <= set(out)
 
 
 def test_entry_points_raise_without_a_card(tmp_path):
@@ -66,6 +74,14 @@ def test_entry_points_raise_without_a_card(tmp_path):
         ShardedDecoder()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ShardedEncoder(EncoderParams(width=64, height=64, device_encode=1))
+    for tool in (device_decode_fps.measure, scaling_curve.measure,
+                 encode_4k.measure):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tool()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_encode_fps.measure([], device_encode_fps.LDB_1080)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encode_scaling.measure()
     cfg = tmp_path / "enc.cfg"
     cfg.write_text("-device_encode 1 -intra_period 1\n")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -77,6 +77,22 @@ def needs_interp(fh) -> bool:
                 and fh.ref_array[0] == -1)
 
 
+def interp_pair(refs, fh):
+    """(r1, r2, ratio, pos): the two frames of the window `refs` that
+    frame `fh`'s interpolated reference is made from and where it lies
+    between them (dec/decode_frame.c:91-109)."""
+    dfn = fh.display_frame_num
+    r1 = refs[fh.ref_array[1]]
+    r2 = refs[fh.ref_array[2]]
+    off1 = r2.frame_num - dfn
+    off2 = dfn - r1.frame_num
+    if off1 < 0 and off2 < 0:
+        off1, off2 = -off1, -off2
+    if off1 == off2:
+        off1 = off2 = 1
+    return r1, r2, off1 + off2, off2
+
+
 def frame_digest_np(y, u, v):
     """Host twin of the device digest (_Digest) over (y, u, v) planes (the
     packed layout is y on top, u|v below): the position-weighted sum
@@ -250,19 +266,8 @@ class Decoder:
         self.next_display = 0
 
     def interp_pair(self, fh):
-        """(r1, r2, ratio, pos): the two window frames that frame `fh`'s
-        interpolated reference is made from and where it lies between
-        them (dec/decode_frame.c:91-109)."""
-        dfn = fh.display_frame_num
-        r1 = self.refs[fh.ref_array[1]]
-        r2 = self.refs[fh.ref_array[2]]
-        off1 = r2.frame_num - dfn
-        off2 = dfn - r1.frame_num
-        if off1 < 0 and off2 < 0:
-            off1, off2 = -off1, -off2
-        if off1 == off2:
-            off1 = off2 = 1
-        return r1, r2, off1 + off2, off2
+        """interp_pair over the decoder's window."""
+        return interp_pair(self.refs, fh)
 
     def _make_interp_frame(self, fh):
         """Synthesize the interpolated reference of frame `fh`. On the

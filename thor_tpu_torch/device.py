@@ -24,6 +24,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def synchronize(dev: torch.device):
+    """Wait for the work queued on `dev` when it is a CUDA device; on the
+    CPU there is nothing to wait for."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def check_current(fn: str, dev: torch.device):
     """A kernel wrapper's check that its tensors lie on the current CUDA
     device: the kernels are ctypes calls that launch on the calling

@@ -38,8 +38,9 @@ import torch
 
 from ..codec.blockdata import DeblockData, get_mv_skip
 from ..codec.constants import (
-    CHROMA_QP, GDEQUANT_TABLE, MODE_BIPRED, MODE_INTER, MODE_INTRA,
-    MODE_MERGE, MODE_SKIP, PAD_C, PAD_Y, zigzag_for)
+    BETA_TABLE, CHROMA_QP, GDEQUANT_TABLE, MAX_BLOCK_SIZE, MODE_BIPRED,
+    MODE_INTER, MODE_INTRA, MODE_MERGE, MODE_SKIP, PAD_C, PAD_Y, TC_TABLE,
+    zigzag_for)
 from ..dec.reconstruct import mc_luts
 from ..native import decide_frame_native, emit_frame_native
 from ..ops import kernels as K
@@ -48,7 +49,7 @@ from ..ops.coeff_bits import coeff_bits_batch
 from ..ops.enc_intra import encode_scan
 from ..ops.mc import build_mc_records, mc_frame
 from .device_intra import (intra_split_decisions, scan_records,
-                           search_intra_frame_maps)
+                           search_intra_frame_dev, search_intra_frame_maps)
 from .device_me import me_frame
 
 SIZES = (8, 16, 32, 64)
@@ -377,24 +378,37 @@ def _insert(a, b, K_uni):
                            a[K_uni:]])
 
 
+def splice_extra(ctx, ev, s, p):
+    """Code the second chance's variants `ev` ({key: [K_EXTRA, N]}, VAR_KEYS,
+    on the device) at size s and splice their banks into ctx["trials"][s]
+    in [uni | extra | bi] order. Returns the new banks."""
+    t2 = trial_coding(ctx["org"], ctx["refs"], ev, s, ctx["qpY"], ctx["qpC"],
+                      ctx["sign"], ctx["sign_bi"], luts=ctx["luts_np"],
+                      k_bi=K_EXTRA, **_trial_flags(p, s))
+    ctx["trials"][s] = {k: _insert(a, t2[k], ctx["K_uni"])
+                        for k, a in ctx["trials"][s].items()}
+    return t2
+
+
 def second_chance(enc, ctx, meas, leaves):
     """Measure the first walk's unmatched skip candidates and splice them
-    into the host maps and the device banks in [uni | extra | bi] order.
-    Returns False when nothing was missing."""
+    into the host maps and the device banks in [uni | extra | bi] order
+    (and into the frame's record, when it has one). Returns False when
+    nothing was missing."""
     W, H = enc.width, enc.height
     missing = collect_missing(W, H, leaves, meas)
     if not any(missing[s] for s in SIZES):
         return False
     p = enc.params
     dev = ctx["org"][0].device
+    rec = ctx.get("rec")
     for s, (ey, ex, es) in extra_variants(missing, H, W).items():
         z = np.zeros_like(ey)
         ev = {k: torch.from_numpy(a).to(dev) for k, a in zip(
             VAR_KEYS, (ey, ex, es, z, z, z, z))}
-        t2 = trial_coding(ctx["org"], ctx["refs"], ev, s, ctx["qpY"],
-                          ctx["qpC"], ctx["sign"], ctx["sign_bi"],
-                          luts=ctx["luts_np"], k_bi=K_EXTRA,
-                          **_trial_flags(p, s))
+        if rec is not None:
+            rec["extra"][s] = ev
+        t2 = splice_extra(ctx, ev, s, p)
         m = meas[s]
         K_uni = m["K_uni"]
         host = {k: t2[k].cpu().numpy() for k in MEAS_KEYS if k in t2}
@@ -403,8 +417,6 @@ def second_chance(enc, ctx, meas, leaves):
         for k, a in host.items():
             m[k] = _insert(m[k], a, K_uni)
         m["K_uni"] = K_uni + K_EXTRA
-        ctx["trials"][s] = {k: _insert(a, t2[k], K_uni)
-                            for k, a in ctx["trials"][s].items()}
     return True
 
 
@@ -442,39 +454,27 @@ def inter_pus(leaves, sign, sign_bi):
     return pus, clamped
 
 
-def _chosen_levels(t, c, tb, leaves, b):
+def _chosen_levels(t, c, tb, ks, idx, b):
     """The levels one plane (c: y, u, v) of the chosen trial banks codes
-    for `leaves`, all coded and all tb-split or none, as ([M, b', b']
-    int32 rows with the levels under a clear cbp zeroed, [M] row origins
-    and column origins in this plane's pixels), b' = b, or b / 2 for the
-    four quadrants (k = 2 * qi + qj) of a tb-split block, whose cbp is bit
-    3 - k of the block's mask."""
-    dev = t["qy"].device
-    ks = torch.tensor([lf.k for lf in leaves], dtype=torch.long, device=dev)
-    idx = torch.tensor([lf.idx for lf in leaves], dtype=torch.long,
-                       device=dev)
-    div = 1 if c == "y" else 2
-    y0 = np.array([lf.ypos // div for lf in leaves], np.int64)
-    x0 = np.array([lf.xpos // div for lf in leaves], np.int64)
+    for the blocks (variant ks, block idx) of one group, all coded and all
+    tb-split or none: [M, b', b'] int32 rows with the levels under a clear
+    cbp zeroed, b' = b, or b / 2 for the four quadrants (k = 2 * qi + qj)
+    of a tb-split block, whose cbp is bit 3 - k of the block's mask."""
     if not tb:
         q = t[f"q{c}"][ks, idx].to(I32)
-        return torch.where(t[f"cbp_{c}"][ks, idx][:, None, None], q, 0), \
-            y0, x0
+        return torch.where(t[f"cbp_{c}"][ks, idx][:, None, None], q, 0)
     b2 = b // 2
     q = _quads(t[f"q{c}_tb"][ks, idx].to(I32), b2)
-    bit = torch.tensor([3, 2, 1, 0], dtype=I32, device=dev)
+    bit = torch.tensor([3, 2, 1, 0], dtype=I32, device=ks.device)
     cb = (((t[f"cbp_tb_{c}"][ks, idx][:, None] >> bit) & 1) != 0).reshape(-1)
-    qi, qj = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1])
-    return (torch.where(cb[:, None, None], q, 0),
-            (y0[:, None] + qi * b2).reshape(-1),
-            (x0[:, None] + qj * b2).reshape(-1))
+    return torch.where(cb[:, None, None], q, 0)
 
 
 def _add_residual(plane, q, b, qp, ys, xs):
     """Dequantize and inverse-transform [M, b, b] level rows and add them
-    at their b-aligned origins (ys, xs) to the plane. A 64x64 block
-    inverse-transforms its low 32x32 with the 64-block dequant shift and
-    repeats every sample 2x2."""
+    at their b-aligned origins (ys, xs: [M] tensors) to the plane. A 64x64
+    block inverse-transforms its low 32x32 with the 64-block dequant shift
+    and repeats every sample 2x2."""
     dev = plane.device
     sh = int(math.log2(b)) - 1
     sy = 32 if b == 64 else b
@@ -486,18 +486,17 @@ def _add_residual(plane, q, b, qp, ys, xs):
         torch.full((M,), sh, dtype=I32, device=dev), sy)
     if sy != b:
         vals = vals.repeat_interleave(2, 1).repeat_interleave(2, 2)
-    return K.scatter_tu(plane, vals, torch.from_numpy(ys).to(dev),
-                        torch.from_numpy(xs).to(dev))
+    return K.scatter_tu(plane, vals, ys, xs)
 
 
-def final_inter(refs, leaves, trials, qpY, qpC, sign, sign_bi, luts, H, W):
-    """The inter part of the final reconstruction: the decoder's block MC
-    (ops/mc.mc_frame) of the inter leaves plus the residual of their chosen
-    banks, clipped; 0 on the intra leaves, which the intra scan fills.
-    refs: (Y, U, V) [R, Hp, Wp] uint8; trials: {size: device banks};
-    luts: the [P, T*T] int32 LUT tensors of ops/mc. Returns (y, u, v) int32
-    planes and the PU count."""
-    dev = refs[0].device
+def final_plan(leaves, sign, sign_bi, H, W, dev):
+    """What the final reconstruction reads of the decided leaves, on `dev`:
+    {"mc_y", "mc_c": the MC records of the inter leaves (ops/mc), "npu":
+    their PU count, "groups": per (size, tb) of the coded inter leaves
+    (s, tb, variants ks, blocks idx, luma (ys, xs), chroma (ys, xs)),
+    "intra": the scan records (luma, chroma) of the intra leaves or None}.
+    sign, sign_bi: numpy [R]. The host work of the final step; a replay
+    runs final_frame on a recorded plan."""
     pus, clamped = inter_pus(leaves, sign, sign_bi)
     recs_y, ny = build_mc_records(pus, H, W, PAD_Y, 2, -2, 6)
     pus_c = dict(pus)
@@ -510,13 +509,11 @@ def final_inter(refs, leaves, trials, qpY, qpC, sign, sign_bi, luts, H, W):
         raise RuntimeError(
             f"final MC: {clamped} windows past thor_tpu's clamp and "
             f"{ny + nc} past the padded planes")
-    py = mc_frame(refs[0][None].contiguous(),
-                  torch.from_numpy(recs_y).to(dev), luts[0], H, W)[0]
-    puv = mc_frame(torch.stack(refs[1:]).contiguous(),
-                   torch.from_numpy(recs_c).to(dev), luts[1], H // 2, W // 2)
 
-    rs = [torch.zeros((H, W), dtype=I32, device=dev)] + [
-        torch.zeros((H // 2, W // 2), dtype=I32, device=dev) for _ in "uv"]
+    def dev_t(a, dtype=torch.long):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    groups = []
     for s in SIZES:
         coded = [lf for lf in leaves if lf.mode != MODE_INTRA and lf.use_cbp
                  and lf.size == s]
@@ -524,13 +521,61 @@ def final_inter(refs, leaves, trials, qpY, qpC, sign, sign_bi, luts, H, W):
             sel = [lf for lf in coded if bool(lf.tb) == tb]
             if not sel:
                 continue
-            for j, c in enumerate("yuv"):
-                b, qp = (s, qpY) if c == "y" else (s // 2, qpC)
-                q, ys, xs = _chosen_levels(trials[s], c, tb, sel, b)
-                rs[j] = _add_residual(rs[j], q, b // 2 if tb else b, qp, ys,
-                                      xs)
-    return (K.clip255(py + rs[0]), K.clip255(puv[0] + rs[1]),
-            K.clip255(puv[1] + rs[2]), len(pus["y0"]))
+            pos = []
+            for div in (1, 2):
+                y0 = np.array([lf.ypos // div for lf in sel], np.int64)
+                x0 = np.array([lf.xpos // div for lf in sel], np.int64)
+                if tb:      # the quadrants' origins, k = 2 * qi + qj
+                    b2 = s // div // 2
+                    y0 = (y0[:, None] + np.array([0, 0, 1, 1]) * b2) \
+                        .reshape(-1)
+                    x0 = (x0[:, None] + np.array([0, 1, 0, 1]) * b2) \
+                        .reshape(-1)
+                pos.append((dev_t(y0), dev_t(x0)))
+            groups.append((s, tb, dev_t([lf.k for lf in sel]),
+                           dev_t([lf.idx for lf in sel]), *pos))
+    intra = [lf for lf in leaves if lf.mode == MODE_INTRA]
+    scan = None
+    if intra:
+        scan = tuple(dev_t(r, I32) for r in scan_records(
+            [(lf.ypos, lf.xpos, lf.size, lf.intra_mode) for lf in intra],
+            W, H))
+    return {"mc_y": dev_t(recs_y, I32), "mc_c": dev_t(recs_c, I32),
+            "npu": len(pus["y0"]), "groups": groups, "intra": scan}
+
+
+def final_frame(refs, org, trials, plan, qpY, qpC, luts, fast, H, W):
+    """The final reconstruction on the device: the decoder's block MC
+    (ops/mc.mc_frame, kernel 2) of the inter leaves plus the residual of
+    their chosen banks, clipped, then the encoder's intra scan
+    (ops/enc_intra.encode_scan, kernel 6, inter quantizer) over the intra
+    leaves. refs: (Y, U, V) [R, Hp, Wp] uint8; org: the int32 planes;
+    trials: {size: device banks}; plan: final_plan's; luts: the [P, T*T]
+    int32 LUT tensors of ops/mc. Returns the (y, u, v) int32 planes and
+    the scan's level banks (luma [M, 1, 16, 16], chroma [M, 2, 16, 16];
+    None without intra leaves). The host does not wait."""
+    dev = refs[0].device
+    py = mc_frame(refs[0][None].contiguous(), plan["mc_y"], luts[0], H, W)[0]
+    puv = mc_frame(torch.stack(refs[1:]).contiguous(), plan["mc_c"], luts[1],
+                   H // 2, W // 2)
+    rs = [torch.zeros((H, W), dtype=I32, device=dev)] + [
+        torch.zeros((H // 2, W // 2), dtype=I32, device=dev) for _ in "uv"]
+    for s, tb, ks, idx, pos_y, pos_c in plan["groups"]:
+        for j, c in enumerate("yuv"):
+            b, qp = (s, qpY) if c == "y" else (s // 2, qpC)
+            q = _chosen_levels(trials[s], c, tb, ks, idx, b)
+            rs[j] = _add_residual(rs[j], q, b // 2 if tb else b, qp,
+                                  *(pos_y if c == "y" else pos_c))
+    y, u, v = (K.clip255(py + rs[0]), K.clip255(puv[0] + rs[1]),
+               K.clip255(puv[1] + rs[2]))
+    if plan["intra"] is None:
+        return y, u, v, None, None
+    recs_y, recs_c = plan["intra"]
+    y, q16y = encode_scan(y[None].contiguous(), org[0][None], recs_y, qpY,
+                          fast, False)
+    uv, q16c = encode_scan(torch.stack([u, v]), torch.stack(org[1:]), recs_c,
+                           qpC, fast, False)
+    return y[0], uv[0], uv[1], q16y, q16c
 
 
 # ---------------------------------------------------------------------------
@@ -618,12 +663,44 @@ def gather_coeffs(leaves, trials):
 # Frame driver
 # ---------------------------------------------------------------------------
 
+def _measure(org, refs, R, K_uni, has_bi, bslot0, bslot1, sign, sign_bi,
+             lam_me, qpY, qpC, p, luts_np, times=None):
+    """ME, the motion variants and the trials of every size on the device:
+    (variants, trials). With `times`, "me" and "trials" get the host-clock
+    seconds of each, ended by a wait for the device."""
+    dev = org[0].device
+    H, W = org[0].shape
+    t0 = time.perf_counter()
+    me = me_frame(org[0], refs[0], lam_me, int(p.enable_bipred))
+    variants = motion_variants(me, H, W, R, has_bi, bslot0, bslot1, sign,
+                               sign_bi)
+    if times is not None:
+        _sync(dev)
+        t1 = time.perf_counter()
+        times["me"] = t1 - t0
+    trials = {s: trial_coding(org, refs, variants[s], s, qpY, qpC, sign,
+                              sign_bi, luts=luts_np, k_bi=K_uni,
+                              **_trial_flags(p, s)) for s in SIZES}
+    if times is not None:
+        _sync(dev)
+        times["trials"] = time.perf_counter() - t1
+    return variants, trials
+
+
+def _ref_key(enc, i, ref):
+    """A reference's identity in a record: ("i", n) for the interpolated
+    reference of frame n, ("r", n) for the window's frame n."""
+    return ("i" if enc.ref_array[i] < 0 else "r", ref.frame_num)
+
+
 def measure_inter_frame_device(enc, org_y, org_u, org_v):
     """First half of a P/B frame: ME, motion variants, the trials of every
     size and the intra search, on the encoder's device. org_*: int32
     planes there. Returns the context finish_inter_frame_device drains.
     Records the host-clock seconds of "me", "trials" and "intra_search" in
-    enc.frame_times[-1]; each ends with a wait for the device."""
+    enc.frame_times[-1]; each ends with a wait for the device. On an
+    Encoder(record=True) the context carries the frame's record (see
+    replay_device_frame)."""
     W, H = enc.width, enc.height
     p = enc.params
     dev = org_y.device
@@ -652,33 +729,39 @@ def measure_inter_frame_device(enc, org_y, org_u, org_v):
                    for c in ("y", "u", "v"))
     sign_d = torch.from_numpy(sign).to(dev)
     sign_bi_d = torch.from_numpy(sign_bi).to(dev)
+    lam_me_d = torch.tensor(lam_me, dtype=torch.float32, device=dev)
     luts_np = (K.build_luma_mc_lut(int(p.enable_bipred)),
                K.build_chroma_mc_lut())
     org = (org_y, org_u, org_v)
 
-    t0 = time.perf_counter()
-    me = me_frame(org_y, refs_d[0],
-                  torch.tensor(lam_me, dtype=torch.float32, device=dev),
-                  int(p.enable_bipred))
-    variants = motion_variants(me, H, W, R, has_bi, bslot0, bslot1, sign_d,
-                               sign_bi_d)
-    _sync(dev)
-    t1 = time.perf_counter()
-    times["me"] = t1 - t0
-    trials = {s: trial_coding(org, refs_d, variants[s], s, qpY, qpC, sign_d,
-                              sign_bi_d, luts=luts_np, k_bi=K_uni,
-                              **_trial_flags(p, s)) for s in SIZES}
-    _sync(dev)
+    variants, trials = _measure(org, refs_d, R, K_uni, has_bi, bslot0,
+                                bslot1, sign_d, sign_bi_d, lam_me_d, qpY, qpC,
+                                p, luts_np, times)
     t2 = time.perf_counter()
-    times["trials"] = t2 - t1
     intra = search_intra_frame_maps(org_y, org_u, org_v, qpY, qpC, lam, W,
                                     H, p.encoder_speed > 1,
                                     enc.num_intra_modes, intra_quant=False)
     times["intra_search"] = time.perf_counter() - t2
-    return dict(org=org, refs=refs_d, variants=variants, trials=trials,
-                intra=intra, sign=sign_d, sign_bi=sign_bi_d, sign_np=sign,
-                sign_bi_np=sign_bi, qpY=qpY, qpC=qpC, lam=lam, lam_me=lam_me,
-                K_uni=K_uni, luts_np=luts_np)
+    ctx = dict(org=org, refs=refs_d, variants=variants, trials=trials,
+               intra=intra, sign=sign_d, sign_bi=sign_bi_d, sign_np=sign,
+               sign_bi_np=sign_bi, qpY=qpY, qpC=qpC, lam=lam, lam_me=lam_me,
+               K_uni=K_uni, luts_np=luts_np)
+    if enc.device_record is not None:
+        keys = [_ref_key(enc, i, r) for i, r in enumerate(refs)]
+        # the references no recorded frame makes (the I frame, the
+        # interpolated reference, a mirror frame), copied onto the record
+        uploads = {}
+        for k, r in zip(keys, refs):
+            if k not in enc.record_keys:
+                enc.record_keys.add(k)
+                uploads[k] = tuple(getattr(r, c).clone() for c in "yuv")
+        ctx["rec"] = dict(
+            frame_num=enc.frame_num, H=H, W=W, R=R, K_uni=K_uni,
+            has_bi=has_bi, bslot0=bslot0, bslot1=bslot1, org=org,
+            sign=sign_d, sign_bi=sign_bi_d, lam=lam, lam_me=lam_me_d,
+            qpY=qpY, qpC=qpC, params=p, nmodes=enc.num_intra_modes,
+            luts_np=luts_np, ref_keys=keys, uploads=uploads, extra={})
+    return ctx
 
 
 def finish_inter_frame_device(enc, w, ctx):
@@ -687,7 +770,9 @@ def finish_inter_frame_device(enc, w, ctx):
     the C writers, which fill enc.deblock_data. Returns the unfiltered
     (y, u, v) int32 planes on the device. Records "decide",
     "second_chance", "final" and "emit" in enc.frame_times[-1], with the
-    launch counts "mc_launches" (kernel 2) and "intra_leaves"."""
+    counts "pus" (the MC's prediction units) and "intra_leaves"; on a
+    recorded frame the record gets the extra variants and the final
+    plan."""
     W, H = enc.width, enc.height
     p = enc.params
     times = enc.frame_times[-1]
@@ -714,23 +799,15 @@ def finish_inter_frame_device(enc, w, ctx):
     t2 = time.perf_counter()
     times["second_chance"] = t2 - t1
 
-    luts = mc_luts(int(p.enable_bipred), dev)
-    y, u, v, npu = final_inter(ctx["refs"], leaves, trials, qpY, qpC,
-                               ctx["sign_np"], ctx["sign_bi_np"], luts, H, W)
+    plan = final_plan(leaves, ctx["sign_np"], ctx["sign_bi_np"], H, W, dev)
+    y, u, v, q16y, q16c = final_frame(
+        ctx["refs"], org, ctx["trials"], plan, qpY, qpC,
+        mc_luts(int(p.enable_bipred), dev), p.encoder_speed > 1, H, W)
+    if ctx.get("rec") is not None:
+        ctx["rec"]["plan"] = plan
     intra = [lf for lf in leaves if lf.mode == MODE_INTRA]
     intra_q = {}
     if intra:
-        fast = p.encoder_speed > 1
-        recs_y, recs_c = scan_records(
-            [(lf.ypos, lf.xpos, lf.size, lf.intra_mode) for lf in intra],
-            W, H)
-        y, q16y = encode_scan(y[None].contiguous(), org[0][None],
-                              torch.from_numpy(recs_y).to(dev), qpY, fast,
-                              False)
-        uv, q16c = encode_scan(torch.stack([u, v]), torch.stack(org[1:]),
-                               torch.from_numpy(recs_c).to(dev), qpC, fast,
-                               False)
-        y, u, v = y[0], uv[0], uv[1]
         q16c = q16c.cpu().numpy()
         intra_q = {"qy": q16y[:, 0].cpu().numpy(), "qu": q16c[:, 0],
                    "qv": q16c[:, 1]}
@@ -740,13 +817,113 @@ def finish_inter_frame_device(enc, w, ctx):
             intra_q["c" + c] = (intra_q["q" + c] != 0).any(axis=(1, 2))
         intra_q["index"] = {(lf.ypos, lf.xpos): i
                             for i, lf in enumerate(intra)}
-    coeff_host = gather_coeffs(leaves, trials)
+    coeff_host = gather_coeffs(leaves, ctx["trials"])
     t3 = time.perf_counter()
     times["final"] = t3 - t2
-    times["pus"] = npu
+    times["pus"] = plan["npu"]
     times["intra_leaves"] = len(intra)
 
     enc.deblock_data.reset()
     emit_frame(enc, w, leaves, meas, coeff_host, intra_q)
     times["emit"] = time.perf_counter() - t3
+    return y, u, v
+
+
+# ---------------------------------------------------------------------------
+# Replay (utils/device_encode_fps.py)
+# ---------------------------------------------------------------------------
+
+def clpf_sb_sums(y, org_y, cy8, H, W):
+    """The CLPF decision's measure (detect_clpf, enc/encode_block.c:3036):
+    per whole superblock, the luma squared error over the candidate 8x8
+    cells (cy8: [H/8, W/8] bool on the device) without and with the filter,
+    as a [2, SBH, SBW] int64 tensor on the device."""
+    SBH, SBW = H // MAX_BLOCK_SIZE, W // MAX_BLOCK_SIZE
+    every = torch.ones((H // 8, W // 8), dtype=torch.bool, device=y.device)
+    Fy = K.clpf_plane(y, every, MAX_BLOCK_SIZE, H, W)
+    m = K._expand2(cy8, 8, 8)
+
+    def sb_sums(E):
+        E = torch.where(m, E, 0)[:SBH * 64, :SBW * 64].to(torch.int64)
+        return E.view(SBH, 64, SBW, 64).sum(dim=(1, 3))
+
+    return torch.stack([sb_sums((org_y - y) ** 2), sb_sums((org_y - Fy) ** 2)])
+
+
+def clpf_apply(y, u, v, c8, on8, H, W):
+    """The CLPF of the planes on the cells of c8 (the candidate masks
+    (cy8, cu8, cv8)) that on8 switches on, all [H/8, W/8] bool on the
+    device."""
+    return (K.clpf_plane(y, c8[0] & on8, MAX_BLOCK_SIZE, H, W),
+            K.clpf_plane(u, c8[1] & on8, MAX_BLOCK_SIZE // 2, H // 2, W // 2),
+            K.clpf_plane(v, c8[2] & on8, MAX_BLOCK_SIZE // 2, H // 2, W // 2))
+
+
+def _replay_filters(rec, y, u, v, org_y):
+    """The in-loop filters of a recorded frame on the device: deblocking
+    on the recorded side-info map, then the CLPF with its decision taken on
+    the device (the live encode fetches the sums to write the bits)."""
+    H, W, qp = rec["H"], rec["W"], rec["qpY"]
+    if rec["deblocking"]:
+        dd = K.unpack_ddp(rec["ddp"])
+        tc_c = int(TC_TABLE[CHROMA_QP[qp]])
+        y = K.deblock_luma(y, dd, H, W, int(BETA_TABLE[qp]),
+                           int(TC_TABLE[qp]))
+        u = K.deblock_chroma(u, dd, H, W, tc_c)
+        v = K.deblock_chroma(v, dd, H, W, tc_c)
+    c8 = rec["clpf_cand"]
+    if c8 is not None:
+        SBH, SBW = H // MAX_BLOCK_SIZE, W // MAX_BLOCK_SIZE
+        sums = clpf_sb_sums(y, org_y, c8[0], H, W)
+        cand = (c8[0] | c8[1] | c8[2])[:SBH * 8, :SBW * 8] \
+            .view(SBH, 8, SBW, 8).any(dim=3).any(dim=1)
+        on_sb = cand & (sums[1] < sums[0])
+        on8 = torch.zeros_like(c8[0])
+        on8[:SBH * 8, :SBW * 8] = on_sb.repeat_interleave(8, 0) \
+            .repeat_interleave(8, 1)
+        y, u, v = clpf_apply(y, u, v, c8, on8, H, W)
+    return y, u, v
+
+
+def replay_device_frame(rec, refstate):
+    """Run one recorded P/B frame's device work again: ME and the motion
+    variants, the trials of every size and of the second chance's
+    variants, the intra search, the final reconstruction (kernels 2 and 6)
+    and the in-loop filters, against the reference chain in `refstate`
+    ({key: padded (Y, U, V)}). The recorded decisions (the walk's leaves
+    as a final_plan, the side-info map, the CLPF candidates) stand in for
+    the host walk and the emit. Inserts the frame's padded reference
+    planes into refstate and returns its (y, u, v) uint8 reconstruction.
+
+    Adds no host wait of its own (no fetch of a device tensor); the
+    programs it shares with the live encode keep theirs (the quantizer's
+    zero-run loop, ops/kernels.py). Every tensor it reads lies on the
+    record, staged there when it was recorded."""
+    for key, planes in rec["uploads"].items():
+        refstate.setdefault(key, planes)
+    refs = tuple(torch.stack([refstate[k][c] for k in rec["ref_keys"]])
+                 for c in range(3))
+    org, p = rec["org"], rec["params"]
+    H, W = rec["H"], rec["W"]
+    ctx = dict(org=org, refs=refs, qpY=rec["qpY"], qpC=rec["qpC"],
+               sign=rec["sign"], sign_bi=rec["sign_bi"],
+               luts_np=rec["luts_np"], K_uni=rec["K_uni"])
+    _, ctx["trials"] = _measure(
+        org, refs, rec["R"], rec["K_uni"], rec["has_bi"], rec["bslot0"],
+        rec["bslot1"], rec["sign"], rec["sign_bi"], rec["lam_me"],
+        rec["qpY"], rec["qpC"], p, rec["luts_np"])
+    for s, ev in rec["extra"].items():
+        splice_extra(ctx, ev, s, p)
+    search_intra_frame_dev(*org, rec["qpY"], rec["qpC"], rec["lam"], W, H,
+                           p.encoder_speed > 1, rec["nmodes"],
+                           intra_quant=False)
+    y, u, v, _, _ = final_frame(
+        refs, org, ctx["trials"], rec["plan"], rec["qpY"], rec["qpC"],
+        mc_luts(int(p.enable_bipred), org[0].device), p.encoder_speed > 1,
+        H, W)
+    y, u, v = (t.to(torch.uint8)
+               for t in _replay_filters(rec, y, u, v, org[0]))
+    refstate[("r", rec["frame_num"])] = (K.edge_pad(y, PAD_Y),
+                                        K.edge_pad(u, PAD_C),
+                                        K.edge_pad(v, PAD_C))
     return y, u, v

@@ -129,13 +129,18 @@ def _search_size(orgY, orgU, orgV, s, W, H, fast, nmodes, qpY, qpC, lam,
     planes' own geometry. intra_quant: the quantizer's offset set."""
     HB, WB = H // s, W // s
     n = HB * WB
+    dev = orgY.device
+    if n == 0:
+        # no whole s x s block (a frame below 64 rows or columns): empty
+        # maps, which the split decisions and the walk read as such
+        return (torch.zeros((HB, WB), dtype=I32, device=dev),
+                torch.zeros((HB, WB), dtype=I32, device=dev))
     sc = s // 2
     ty, tx = _block_grid(s, W, H)
     up_av = _upright_available_v(ty, tx, s, W)
     dl_av = _downleft_available_v(ty, tx, s, H)
     up_av_c = _upright_available_v(ty // 2, tx // 2, sc, W // 2)
     dl_av_c = _downleft_available_v(ty // 2, tx // 2, sc, H // 2)
-    dev = orgY.device
     tyd, txd = torch.as_tensor(ty, device=dev), torch.as_tensor(tx, device=dev)
 
     def plane_modes(orgs, b, W_, H_, up, dl, ty_, tx_, qp, chroma):
@@ -203,17 +208,24 @@ def intra_split_decisions(host, W, H, return_costs=False):
     return modes, split
 
 
+def search_intra_frame_dev(org_y, org_u, org_v, qp, qpC, lam, W, H, fast,
+                           nmodes, intra_quant=True):
+    """The per-size mode searches on the planes' device (lam rounded to
+    float32 here): {size: (mode_map, cost_map)} tensors there; the host
+    does not wait."""
+    lam32 = torch.tensor(lam, dtype=torch.float32, device=org_y.device)
+    return {s: _search_size(org_y, org_u, org_v, s, W, H, fast, nmodes, qp,
+                            qpC, lam32, intra_quant)
+            for s in (8, 16, 32, 64)}
+
+
 def search_intra_frame_maps(org_y, org_u, org_v, qp, qpC, lam, W, H, fast,
                             nmodes, intra_quant=True):
-    """The per-size mode searches on the planes' device (lam rounded to
-    float32 here), fetched: {size: (mode_map, cost_map)} numpy maps."""
-    lam32 = torch.tensor(lam, dtype=torch.float32, device=org_y.device)
-    host = {}
-    for s in (8, 16, 32, 64):
-        m, c = _search_size(org_y, org_u, org_v, s, W, H, fast, nmodes, qp,
-                            qpC, lam32, intra_quant)
-        host[s] = (m.cpu().numpy(), c.cpu().numpy())
-    return host
+    """search_intra_frame_dev's maps, fetched: {size: (mode_map,
+    cost_map)} numpy maps."""
+    return {s: (m.cpu().numpy(), c.cpu().numpy()) for s, (m, c) in
+            search_intra_frame_dev(org_y, org_u, org_v, qp, qpC, lam, W, H,
+                                   fast, nmodes, intra_quant).items()}
 
 
 def search_intra_frame(org_y, org_u, org_v, qp, qpC, lam, W, H, fast, nmodes,

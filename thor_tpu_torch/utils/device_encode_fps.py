@@ -1,0 +1,125 @@
+"""Device-only encode throughput of the device encoder's P and B frames.
+
+    python -m thor_tpu_torch.utils.device_encode_fps [--frames N]
+        [--reps N] [--device cpu] [--json out]
+
+Counterpart of thor_tpu's tools/device_encode_fps.py. Encodes the
+top-left 1920x1080 crop of testdata/test_4k.yuv (frames 0..N-1) with
+Encoder(record=True), in the low-delay B form of
+LDB_medium_complexity_1080.bit's header (LDB_1080 below, built in code:
+thor_tpu's tool reads a reference config file), then runs every recorded
+P/B frame again through enc/device_inter.replay_device_frame, back to
+back, with the reference chain on the device and one wait at the end:
+ME, the trials, the intra search, the final reconstruction (kernels 2
+and 6) and the filters, without the host's decision walk and emit. The
+records hold their inputs on the device already.
+
+Gate: every replayed frame's reconstruction equals the live encode's
+(checked after the clock stops); without that, no number is reported.
+The calls that make the host wait for the card during one untimed replay
+are counted (utils/tracing.host_waits) and reported per frame with their
+sites. Prints one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..device import resolve_device, synchronize
+from ..enc.device_inter import replay_device_frame
+from ..enc.encoder import Encoder, EncoderParams, crop_yuv_frames
+from .tracing import host_waits
+
+TESTDATA = Path(__file__).resolve().parents[2] / "testdata"
+INPUT_4K = (TESTDATA / "test_4k.yuv", 3840, 2160)
+# the sequence header of LDB_medium_complexity_1080.bit: two references,
+# bipred, deblocking, CLPF, block contexts, no tb / pb split, no delta-QP
+LDB_1080 = dict(width=1920, height=1080, qp=32, device_encode=1,
+                max_num_ref=2, enable_bipred=1, encoder_speed=0,
+                deblocking=1, clpf=1, use_block_contexts=1)
+
+
+def replay(enc, recons, reps=3):
+    """Replay the records of a recorded encode (`enc`, whose sequence
+    returned `recons` in display order) back to back `reps` times after
+    one untimed run that counts the host waits. Returns a dict: frames,
+    the seconds of each timed run, device_fps (frames over the best run),
+    the host waits per frame and their sites. Raises when a frame of the
+    last run differs from the live reconstruction."""
+    records = enc.device_record
+    if not records:
+        raise ValueError("the encode recorded no P or B frame")
+    dev = records[0]["org"][0].device
+
+    def run():
+        refstate = {}
+        return [(rec["frame_num"], replay_device_frame(rec, refstate))
+                for rec in records]
+
+    with host_waits(dev) as sites:
+        run()
+    synchronize(dev)
+    secs = []
+    for _ in range(reps):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out = run()
+        synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+    for fn, planes in out:
+        if not all(np.array_equal(p.cpu().numpy(), q)
+                   for p, q in zip(planes, recons[fn])):
+            raise AssertionError(f"the replay of frame {fn} differs from "
+                                 "the live reconstruction")
+    n = len(records)
+    return {"frames": n, "reps": reps, "seconds": secs,
+            "device_fps": n / min(secs),
+            "host_waits_per_frame": sum(sites.values()) / n,
+            "host_wait_sites": {f"{a}:{b}": c for (a, b), c in
+                                sorted(sites.items())}}
+
+
+def measure(frames, fields, reps=3, device=None, out_path=os.devnull):
+    """Encode `frames` with EncoderParams.in_code(**fields) and
+    record=True (the live encode's wall seconds in "encode_seconds"),
+    then replay(): its dict."""
+    dev = resolve_device(device)
+    enc = Encoder(EncoderParams.in_code(num_frames=len(frames), **fields),
+                  device=dev, record=True)
+    t0 = time.perf_counter()
+    recons = enc.encode_sequence(frames, out_path)
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+    return {"encode_seconds": wall, **replay(enc, recons, reps),
+            "device": str(dev)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=4,
+                    help="frames of the sequence (the first is an I frame)")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--device", default=None,
+                    help="cpu runs the kernels' plain versions")
+    ap.add_argument("--json", default=None, help="also write the result here")
+    args = ap.parse_args(argv)
+    frames = crop_yuv_frames(*INPUT_4K, 1920, 1080, args.frames)
+    r = {"form": "LDB 1080p", **measure(frames, LDB_1080, args.reps,
+                                        args.device)}
+    if r["device"].startswith("cuda"):
+        r["card"] = torch.cuda.get_device_name(0)
+    s = json.dumps(r)
+    if args.json:
+        Path(args.json).write_text(s + "\n")
+    print(s)
+
+
+if __name__ == "__main__":
+    main()

@@ -28,6 +28,7 @@ from ..dec.decoder import Decoder
 from ..dec.inputs import build_frame_inputs
 from ..dec.parse import SequenceHeader
 from ..native import parse_frame, seqhdr_from_python
+from .tracing import StageTimer, device_trace
 
 DEFAULT = "testdata/LDB_medium_complexity_1080.bit"
 
@@ -40,19 +41,19 @@ def host_stages(path):
     seq = SequenceHeader.read(br)
     cs = seqhdr_from_python(seq)
     nums = [0] * MAX_REF_FRAMES
-    pos, tp, tb = br.pos, 0.0, 0.0
+    pos = br.pos
+    timer = StageTimer()
     for p in payloads:
-        t0 = time.perf_counter()
-        nf = parse_frame(p, pos, cs, nums)
-        t1 = time.perf_counter()
-        build_frame_inputs(nf, seq, nums)
-        tb += time.perf_counter() - t1
-        tp += t1 - t0
+        with timer.stage("parse"):
+            nf = parse_frame(p, pos, cs, nums)
+        with timer.stage("build"):
+            build_frame_inputs(nf, seq, nums)
         pos = 0
         nums = [nf.hdr.display_frame_num] + nums[:-1]
     n = len(payloads)
-    return {"frames": n, "parse_ms_per_frame": tp / n * 1e3,
-            "build_ms_per_frame": tb / n * 1e3}
+    return {"frames": n,
+            "parse_ms_per_frame": timer.totals["parse"] / n * 1e3,
+            "build_ms_per_frame": timer.totals["build"] / n * 1e3}
 
 
 def _group(name: str) -> str:
@@ -78,9 +79,7 @@ def profile_run(run):
     """Runs `run()` under torch.profiler (CPU + CUDA activities), ending
     in a synchronize: (run's result, wall ms, device ms by group, the 12
     kernels with most device time as (ms, launches, name), launches)."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with device_trace(None, "cuda") as prof:
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()

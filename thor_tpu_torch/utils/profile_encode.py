@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from ..enc.encoder import Encoder, EncoderParams, read_yuv_frames
+from ..enc.encoder import Encoder, EncoderParams, crop_yuv_frames
 from .profile_decode import profile_run
 
 INPUT = ("testdata/test_4k.yuv", 3840, 2160)
@@ -38,10 +38,7 @@ LDB_PB = dict(max_num_ref=2, enable_bipred=1, encoder_speed=0)
 
 
 def crop_frames(n):
-    path, sw, sh = INPUT
-    return [(y[:H, :W].copy(), u[:H // 2, :W // 2].copy(),
-             v[:H // 2, :W // 2].copy())
-            for y, u, v in read_yuv_frames(path, sw, sh, n)]
+    return crop_yuv_frames(*INPUT, W, H, n)
 
 
 def params(n, form):

@@ -1,0 +1,108 @@
+"""Tracing and profiling hooks.
+
+Counterpart of thor_tpu/utils/tracing.py. StageTimer keeps the host's
+wall clock per named stage (parse, input build, device step, output) with
+thor_tpu's report; each stage is also a torch.profiler range, and on a
+timer made for a CUDA device an NVTX range, so a trace and an Nsight
+timeline name the stages. device_trace is torch.profiler with CPU (and,
+on a card, CUDA) activities, written as a Chrome trace. host_waits counts
+the calls that make the host wait for the card
+(torch.cuda.set_sync_debug_mode), by the line that made them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+import warnings
+from collections import Counter, defaultdict
+
+import torch
+
+from ..device import resolve_device
+
+
+class StageTimer:
+    """Accumulates wall-clock per named pipeline stage. device: the
+    device the stages run on (None: the host only); a CUDA device adds an
+    NVTX range per stage."""
+
+    def __init__(self, device=None):
+        self.device = None if device is None else torch.device(device)
+        self.totals = defaultdict(float)
+        self.counts = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        nvtx = self.device is not None and self.device.type == "cuda"
+        with torch.profiler.record_function(name):
+            if nvtx:
+                torch.cuda.nvtx.range_push(name)
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.totals[name] += time.perf_counter() - t0
+                self.counts[name] += 1
+                if nvtx:
+                    torch.cuda.nvtx.range_pop()
+
+    def report(self) -> str:
+        lines = []
+        for name in sorted(self.totals, key=self.totals.get, reverse=True):
+            t, n = self.totals[name], self.counts[name]
+            lines.append(f"{name:24s} {t*1000:10.2f} ms total "
+                         f"{t/n*1000:8.3f} ms/call x{n}")
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(logdir, device=None):
+    """torch.profiler over the block, CPU activities and, on a CUDA
+    device ("cuda" by default; raises without a card), CUDA activities;
+    yields the profiler (key_averages() for device time by kernel) and
+    writes logdir/trace.json, a Chrome trace (chrome://tracing, Perfetto),
+    unless logdir is None."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = resolve_device(device)
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield prof
+    if logdir is not None:
+        os.makedirs(logdir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+@contextlib.contextmanager
+def host_waits(device):
+    """Counts the calls in the block that make the host wait for the
+    card (a fetch, .item(), bool() of a tensor; torch.cuda's sync debug
+    mode): yields a Counter of (file, line) -> calls, filled when the
+    block ends. On the CPU there is nothing to wait for: it stays empty.
+    Not thread-safe (it records Python warnings)."""
+    sites = Counter()
+    if torch.device(device).type != "cuda":
+        yield sites
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield sites
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            sites[(_site(w.filename), w.lineno)] += 1
+
+
+def _site(path):
+    """A wait's file: relative to the working directory, or from the
+    package name on for an installed package's file (torch/...)."""
+    rel = os.path.relpath(path)
+    return rel.split("site-packages" + os.sep)[-1] if rel.startswith("..") \
+        else rel

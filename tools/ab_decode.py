@@ -41,18 +41,20 @@ for name in %r:
     S.timed_decodes(path, want, dev, card)
 """ % (STREAMS,)
 
-# this tree's profiler, loaded into the package of the tree the process
-# runs in (its relative imports resolve there)
+# this tree's profiler and the tracing hooks it uses, loaded into the
+# package of the tree the process runs in (their other relative imports
+# resolve there)
 PROFILER = """
 import importlib.util, sys
 sys.path.insert(0, ".")
 import thor_tpu_torch.utils
-spec = importlib.util.spec_from_file_location(
-    "thor_tpu_torch.utils.profile_decode", %r)
-P = importlib.util.module_from_spec(spec)
-sys.modules[spec.name] = P
-spec.loader.exec_module(P)
-""" % (str(ROOT / "thor_tpu_torch" / "utils" / "profile_decode.py"),)
+for name in ("tracing", "profile_decode"):
+    spec = importlib.util.spec_from_file_location(
+        "thor_tpu_torch.utils." + name, "%s/" + name + ".py")
+    P = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = P
+    spec.loader.exec_module(P)
+""" % (ROOT / "thor_tpu_torch" / "utils",)
 
 PROFILE = PROFILER + "P.main(sys.argv[1:])\n"
 

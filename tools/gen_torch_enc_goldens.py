@@ -55,6 +55,12 @@ CASES = {
     "intra_cif": (352, 288, dict(
         qp=32, intra_period=1, num_frames=1, device_encode=1, intra_rdo=1,
         use_block_contexts=1)),
+    # no whole superblock: at 88x40 no 64 block fits along y, at 48x48
+    # along either axis (the search's 64 size class is empty)
+    "intra_88x40": (88, 40, dict(
+        qp=32, intra_period=1, num_frames=1, device_encode=1)),
+    "intra_48x48": (48, 48, dict(
+        qp=32, intra_period=1, num_frames=1, device_encode=1)),
     # LDB: I, P, then P with two references; the second chance
     "ldb_qcif": (176, 144, dict(
         qp=32, num_frames=3, device_encode=1, max_num_ref=2,
@@ -501,7 +507,12 @@ def main(argv):
         t0 = time.time()
         recons = Encoder(EncoderParams(**fields)).encode_sequence(
             frames, str(part))
-        dec = decode_file(str(part), backend="numpy")
+        # thor_tpu's native-parse adapter reshapes the CLPF bits to the
+        # whole-superblock grid, which is empty below 64 rows or columns
+        # (thor_tpu/dec/native_adapter.py:43): parse those in Python
+        small = min(fields["width"], fields["height"]) < 64
+        dec = decode_file(str(part), backend="numpy",
+                          parse="python" if small else "native")
         ok = len(dec) == len(recons) and all(
             np.array_equal(a, b) for d, r in zip(dec, recons)
             for a, b in zip(d, r))
