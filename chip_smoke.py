@@ -103,11 +103,20 @@ Phases (any failure exits nonzero):
      and 4 (equal to the sha256 and to each other); encode_4k at 2 frames
      (I P), decoded back exactly, with its end-to-end and replay fps and
      peak memory; each with the counters around it;
+     Then the bench twin as a user runs it: `python -m thor_tpu_torch.bench`
+     in a process of its own (a child process each for the probe, the
+     1080p LDB decode, the digest-verified decode, RA16, the LDB replay,
+     the link floor, the synthetic frame, the 1080p LDB-form encode and
+     its replay), which must exit 0 with its three gates true, every fps
+     key above 0 and no error; each child counts the kernels over its own
+     process from 0 and must launch the kernels of its path, with no plain
+     call but the synthetic frame's CPU reference; its line and seconds;
   5. a {"kernels": [...]} JSON line (six kernels; mc_frame and encode_scan
      with their launches in the P/B encode; each with its launches over
      the mirror encodes, over the two collect_stats decodes, over the 4x1
      sharded RA16 decode, over the sharded 1080p RA-form encode, in one
-     round of each replay, per synthetic frame and over the 4K encode);
+     round of each replay, per synthetic frame, over the 4K encode and
+     over each bench child);
   6. last line: {"ok": true, "device": {...}}.
 Imports nothing of JAX or thor_tpu. Without a CUDA device it exits 1 and
 prints no result.
@@ -117,6 +126,8 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2209,6 +2220,76 @@ def phase_tools(dev, card, pb_enc, pb_recons, out_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the bench twin: python -m thor_tpu_torch.bench, as a user runs it
+# ---------------------------------------------------------------------------
+
+BENCH_TIMEOUT = 900
+BENCH_FPS = ("value", "decode_e2e_verify_fps", "ra16_1080_decode_fps",
+             "decode_device_fps", "link_floor_fps", "d2h_MBps",
+             "e2e_pct_of_link_floor", "synthetic_inter_device_fps",
+             "1080p_encode_e2e_fps", "encode_device_fps")
+BENCH_GATES = ("bit_exact", "decode_verify_ok", "ra16_1080_bit_exact")
+# the kernels each child must launch (the bench counts them over the
+# child's process, from 0)
+BENCH_MUST = {"decode": ("mc_frame", "intra_scan"),
+              "decode_verify": ("mc_frame", "intra_scan"),
+              "decode_ra16": DEC_KERNELS,
+              "decode_device": ("mc_frame", "intra_scan"),
+              "synth": ("mc_frame",),
+              "encode": ("mc_frame", "intra_scan", "encode_scan"),
+              "encode_device": ("mc_frame", "encode_scan")}
+
+
+def phase_bench(card):
+    """`python -m thor_tpu_torch.bench` in a process group of its own,
+    under BENCH_TIMEOUT: exit 0, no error, the three gates true, every
+    fps key above 0, and every child through its kernels (the synthetic
+    frame's plain calls are its gate's CPU frame; no other child calls a
+    plain version). Prints the bench's line. Returns each child's
+    launches."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "thor_tpu_torch.bench"],
+                            cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"the bench ran past {BENCH_TIMEOUT} s")
+    dt = time.perf_counter() - t0
+    children = {}
+    for ln in err.splitlines():
+        if ln.startswith("[bench] child ") and ln.rstrip().endswith("}"):
+            _, _, name, obj = ln.split(" ", 3)
+            children[name] = json.loads(obj)
+    lines = out.strip().splitlines()
+    log(f"[bench] {lines[-1] if lines else '(no line)'}")
+    for name, c in children.items():
+        log(f"[bench] child {name}: " + json.dumps(
+            {k: v for k, v in c.items() if k != "digests"}))
+    line = json.loads(lines[-1]) if lines else {}
+    bad = [k for k in BENCH_FPS if not (line.get(k) or 0) > 0] \
+        + [k for k in BENCH_GATES if line.get(k) is not True]
+    for name, must in BENCH_MUST.items():
+        c = children.get(name, {})
+        launched = c.get("launches", {})
+        if not all(launched.get(k) for k in must) or (
+                name != "synth" and any(c.get("plain_calls", {1: 1})
+                                        .values())):
+            bad.append(f"{name}'s launches {launched}")
+    log(f"[bench] python -m thor_tpu_torch.bench: exit {proc.returncode} "
+        f"in {dt:.1f} s (host clock); card {card}")
+    if proc.returncode or len(lines) != 1 or "error" in line or bad:
+        raise AssertionError(f"the bench failed: {bad}; error "
+                             f"{line.get('error')}; stderr "
+                             f"{err.strip()[-3000:]}")
+    return {name: children[name]["launches"] for name in BENCH_MUST}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2240,6 +2321,7 @@ def main():
         launches_sh_ra, launches_sh_enc = phase_parallel(dev, card, Path(tmp))
         launches_tools = phase_tools(dev, card, pb_enc, pb_recons, Path(tmp))
         del pb_enc, pb_recons
+    launches_bench = phase_bench(card)
 
     pi = "thor_tpu/ops/pallas_interp.py"
     meta = {
@@ -2271,6 +2353,8 @@ def main():
             "launches_sharded_ra16": launches_sh_ra[name],
             "launches_sharded_encode": launches_sh_enc[name],
             **{f"launches_{k}": v[name] for k, v in launches_tools.items()},
+            **{f"launches_bench_{k}": v[name]
+               for k, v in launches_bench.items()},
             "max_abs_err": max_err[name],
             "ms": sum(x[0] for x in r), "plain_ms": sum(x[1] for x in r),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
@@ -2296,7 +2380,8 @@ def main():
         f"round of the two 1080p decodes and of the LDB-form encode's P "
         f"frames; launches_synthetic: per 1080p synthetic frame; "
         f"launches_encode_4k: over the 2-frame 4K encode, its decode and "
-        f"its replay rounds); {smi_line}")
+        f"its replay rounds; launches_bench_<child>: over each child "
+        f"process of python -m thor_tpu_torch.bench); {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

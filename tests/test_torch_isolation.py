@@ -8,13 +8,15 @@ import sys
 import pytest
 import torch
 
+from thor_tpu_torch import bench
 from thor_tpu_torch.dec.decoder import Decoder, decode_file
 from thor_tpu_torch.device import resolve_device
 from thor_tpu_torch.enc.encoder import Encoder, EncoderParams, encode_file
 from thor_tpu_torch.parallel.encode import ShardedEncoder
 from thor_tpu_torch.parallel.stream import ShardedDecoder
 from thor_tpu_torch.utils import (device_decode_fps, device_encode_fps,
-                                  encode_4k, encode_scaling, scaling_curve)
+                                  encode_4k, encode_scaling, link_profile,
+                                  scaling_curve)
 
 from .conftest import REPO, TESTDATA
 
@@ -38,9 +40,10 @@ def test_port_imports_no_jax_and_no_thor_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     out = r.stdout.split()
-    assert int(out[0]) >= 59       # the enc package, host mirror, the
+    assert int(out[0]) >= 61       # the enc package, host mirror, the
     #                                 numpy decode backend, the parallel
-    #                                 paths and the measuring tools included
+    #                                 paths, the measuring tools and the
+    #                                 bench included
     assert {"thor_tpu_torch.enc.host", "thor_tpu_torch.enc.inter",
             "thor_tpu_torch.enc.quant", "thor_tpu_torch.ops.np_kernels",
             "thor_tpu_torch.utils.checkpoint",
@@ -56,7 +59,9 @@ def test_port_imports_no_jax_and_no_thor_tpu():
             "thor_tpu_torch.utils.device_encode_fps",
             "thor_tpu_torch.utils.scaling_curve",
             "thor_tpu_torch.utils.encode_scaling",
-            "thor_tpu_torch.utils.encode_4k"} <= set(out)
+            "thor_tpu_torch.utils.encode_4k",
+            "thor_tpu_torch.utils.link_profile",
+            "thor_tpu_torch.bench"} <= set(out)
 
 
 def test_entry_points_raise_without_a_card(tmp_path):
@@ -92,3 +97,15 @@ def test_entry_points_raise_without_a_card(tmp_path):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_bench_and_link_profile_raise_without_a_card():
+    """The bench's children and link_profile.measure_link, called without
+    a device, refuse to run on the CPU in its place."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        link_profile.measure_link(1920 * 1080 * 3 // 2)
+    for child in bench.CHILD_FNS.values():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            child()
