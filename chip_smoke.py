@@ -10,8 +10,9 @@ Phases (any failure exits nonzero):
      report;
   3. kernels: each kernel against its plain PyTorch version on the card;
      exact equality; times from CUDA events. Block MC and the intra scan at
-     the shapes of the 1080p LDB stream (first P frame, I frame) and on
-     seeded random tilings. The interpolation kernels (pyramid ME, luma and
+     the shapes of the 1080p LDB stream (first P frame, I frame), on the
+     records padded to the fused path's bucket with the real count on the
+     card (the per-frame row) and unpadded, and on seeded random tilings. The interpolation kernels (pyramid ME, luma and
      chroma synthesis, the latter two writing the padded reference planes,
      U/V on vectors it derives from the luma field) at every level of the
      1080p RA16 stream's first interpolated frame and on seeded correlated
@@ -35,7 +36,15 @@ Phases (any failure exits nonzero):
      goldens; then the 1080p RA16 stream (sha256), the RA / RA16 / HDB CIF
      goldens and RA16_long (sha256), which must launch all five decoder
      kernels and call no plain version; fps of both 1080p decodes, three
-     repeats. Then the Python parse route: both 1080p streams decoded with
+     repeats. Every Decoder decode but the A/B's eager ones runs the frame
+     program as CUDA graphs (dec/fused.py) and fails unless it replayed
+     one graph a frame at least; the counted decodes capture the streams'
+     signatures (their captures and host ms logged), the timed ones
+     replay them. Then the fused / eager A/B on both 1080p streams, in
+     turns: warm end-to-end fps (fused, eager, eager, fused) with peak
+     memory, the device-only replay's fps and host waits a frame, the
+     signatures, and the kernels, copies and launch calls a frame from
+     torch.profiler. Then the Python parse route: both 1080p streams decoded with
      collect_stats=True (the instrumented Python parser on the parse
      thread, dec/syntax_inputs.py into the frame program), each equal to
      its sha256 golden, its Thordec statistics report equal to thor_tpu's
@@ -531,6 +540,7 @@ def first_frames(dev):
 
 def phase_kernels(dev):
     """Kernels against plain versions; returns per-kernel rows."""
+    from thor_tpu_torch.dec import fused as F
     from thor_tpu_torch.dec.reconstruct import residual_planes
     from thor_tpu_torch.ops import intra as IT
     from thor_tpu_torch.ops import mc as M
@@ -540,7 +550,7 @@ def phase_kernels(dev):
     rows = {"mc_frame": [], "intra_scan": []}
     max_err = {"mc_frame": 0, "intra_scan": 0}
 
-    def check(kname, label, kern, plain, bound, timed=True):
+    def check(kname, label, kern, plain, bound, timed=True, row=True):
         got = kern()
         t0 = time.perf_counter()
         want = plain()
@@ -559,9 +569,19 @@ def phase_kernels(dev):
         ms = time_ms(kern)
         log(f"[kernel] {kname}[{label}] equal to plain; kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.2f} bound_ms={b_ms:.5f} ({b_by})")
-        rows[kname].append((ms, plain_ms, b_ms, b_by, bound))
+        if row:
+            rows[kname].append((ms, plain_ms, b_ms, b_by, bound))
 
-    # block MC at the first P frame (Y: one launch, U+V: one launch)
+    def bucketed(name, recs):
+        """recs padded to the fused path's bucket, and the real count, on
+        the card (dec/fused.bucket_inputs)."""
+        b = F.bucket_inputs(None, {name: recs.cpu().numpy()})
+        return (torch.from_numpy(b[name]).to(dev),
+                torch.from_numpy(b[name + "_n"]).to(dev))
+
+    # block MC at the first P frame (Y: one launch, U+V: one launch), on
+    # the records as the fused path gives them (the per-frame row: padded
+    # to a bucket, the real count on the card) and as the eager path does
     refY = torch.stack([r.y for r in refs1])[None]
     refUV = torch.stack([torch.stack([r.u for r in refs1]),
                          torch.stack([r.v for r in refs1])])
@@ -569,10 +589,16 @@ def phase_kernels(dev):
     for label, refs, recs, lut, h, w, T, C in (
             ("Y", refY, inp1["mc_y"], luts[0], H, W, 6, 1),
             ("UV", refUV, inp1["mc_c"], luts[1], H // 2, W // 2, 4, 2)):
+        bound = mc_bound(recs, R, refs.shape[2], refs.shape[3], T, C, h, w)
+        brecs, cnt = bucketed("mc_y", recs)
+        check("mc_frame", f"1080p P frame {label}, {len(recs)} records in "
+              f"a bucket of {len(brecs)} (fused path)",
+              lambda: M.mc_frame(refs, brecs, lut, h, w, cnt),
+              lambda: M.mc_frame_plain(refs, brecs, lut, h, w, cnt), bound)
         check("mc_frame", f"1080p P frame {label}, {len(recs)} records",
               lambda: M.mc_frame(refs, recs, lut, h, w),
-              lambda: M.mc_frame_plain(refs, recs, lut, h, w),
-              mc_bound(recs, R, refs.shape[2], refs.shape[3], T, C, h, w))
+              lambda: M.mc_frame_plain(refs, recs, lut, h, w), bound,
+              row=False)
         zeros_ms = time_ms(lambda: torch.zeros((C, h, w), dtype=torch.int32,
                                                device=dev))
         log(f"[kernel] mc_frame[1080p P frame {label}]: the wrapper's "
@@ -600,11 +626,17 @@ def phase_kernels(dev):
             ("Y", y0, ry[None].contiguous(), inp0["it_y"], 1),
             ("UV", uv0, rc, inp0["it_c"], 2)):
         chains.append(int(IT.intra_levels(recs.cpu().numpy()).max()))
+        brecs, cnt = bucketed("it_y", recs)
+        check("intra_scan", f"1080p I frame {label}, {len(recs)} TUs in a "
+              f"bucket of {len(brecs)} (fused path), chain {chains[-1]}",
+              lambda: IT.intra_scan(planes, resid, brecs, cnt),
+              lambda: IT.intra_scan_plain(planes, resid, brecs, cnt),
+              (intra_bound(recs, C), 0))
         check("intra_scan", f"1080p I frame {label}, {len(recs)} TUs, "
               f"chain {chains[-1]}",
               lambda: IT.intra_scan(planes, resid, recs),
               lambda: IT.intra_scan_plain(planes, resid, recs),
-              (intra_bound(recs, C), 0))
+              (intra_bound(recs, C), 0), row=False)
     # the first P frame's intra TUs: scattered, on the frame's own residual
     # (timed, but not part of the per-frame row)
     assert "it_y" in inp1
@@ -879,11 +911,15 @@ def phase_interp_kernels(dev):
     return rows, max_err
 
 
-def decode(path, dev):
+def decode(path, dev, fused=True):
     """(frames, sha256 of the output, output bytes or None for a 1080p
-    stream) of one decode; fails if an MC window left the padded plane."""
+    stream) of one decode (by default through the frame graphs); fails if
+    an MC window left the padded plane, or if the fused decode replayed
+    fewer graphs than it decoded frames."""
+    from thor_tpu_torch.dec import fused as F
     from thor_tpu_torch.dec.decoder import Decoder
-    dec = Decoder(device=dev)
+    r0 = F.STATS["replays"]
+    dec = Decoder(device=dev, fused=fused)
     h = hashlib.sha256()
     keep = [] if path not in (STREAM_1080, STREAM_RA_1080) else None
     n = 0
@@ -896,6 +932,10 @@ def decode(path, dev):
     if dec.mc_clamped:
         raise AssertionError(f"{path.name}: {dec.mc_clamped} MC windows "
                              "leave the padded reference plane")
+    replays = F.STATS["replays"] - r0
+    if fused and replays < n:
+        raise AssertionError(f"{path.name}: {replays} graph replays for "
+                             f"{n} frames")
     return n, h.hexdigest(), keep and b"".join(keep)
 
 
@@ -927,13 +967,21 @@ def read_counters():
 def counted_decode(path, dev, must_launch):
     """Decode with every counter set to 0 just before and read just
     after; every kernel in `must_launch` must have launched and no plain
-    version been called."""
+    version been called. The decode goes through the frame graphs (one
+    replay per frame at least, decode()); the captures it made (a cold
+    signature: warm-up, capture) and their host ms are logged."""
+    from thor_tpu_torch.dec import fused as F
+    s0 = dict(F.STATS)
     zero_counters()
     n, sha, _ = decode(path, dev)
     launches, plain_calls = read_counters()
     per_frame = {k: round(v / n, 3) for k, v in launches.items()}
+    d = {k: F.STATS[k] - s0[k] for k in s0}
     log(f"[slice] {path.name}: launches {launches} ({per_frame} per "
-        f"frame); plain calls {plain_calls}")
+        f"frame, the captures' warm-up runs included); plain calls "
+        f"{plain_calls}; {d['replays']} graph replays for {n} frames, "
+        f"{d['captures']} captures in {d['capture_ms']:.1f} ms (host "
+        f"clock, warm-up included), {d['evictions']} evictions")
     if not all(launches[k] for k in must_launch) or any(plain_calls.values()):
         raise AssertionError(f"{path.name}: the decode did not run through "
                              f"the kernels {must_launch} alone")
@@ -957,9 +1005,13 @@ def check_goldens(names, dev):
 
 def timed_decodes(path, want, dev, card):
     """FPS_REPEATS warm decodes in a row, each on the host clock and
-    ending in torch.cuda.synchronize(), sha256 checked every time."""
+    ending in torch.cuda.synchronize(), sha256 checked every time; they
+    replay the graphs the counted decode captured (none is captured
+    again)."""
+    from thor_tpu_torch.dec import fused as F
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    c0 = F.STATS["captures"]
     fps = []
     for _ in range(FPS_REPEATS):
         t0 = time.perf_counter()
@@ -975,7 +1027,8 @@ def timed_decodes(path, want, dev, card):
         f"{FPS_REPEATS} warm decodes of {n} frames: "
         f"{', '.join(f'{x:.3f}' for x in fps)}; spread "
         f"{(max(fps) - min(fps)) / med * 100:.1f} % of the median; host "
-        f"clock, each ends in torch.cuda.synchronize()); "
+        f"clock, each ends in torch.cuda.synchronize(); "
+        f"{F.STATS['captures'] - c0} captures); "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} B; "
         f"card {card}")
 
@@ -995,6 +1048,94 @@ def phase_slice(path, must_launch, goldens, dev, card):
     timed_decodes(path, want, dev, card)
     return launches, n
 
+
+
+def phase_fused_ab(dev, card):
+    """The frame program as CUDA graphs (fused, the Decoder's default)
+    against the eager stages (fused=False), both 1080p streams, in turns:
+    the host stages alone (utils/profile_decode.host_stages: parse, input
+    build, bucketing and packing, ms a frame); a cold fused decode (the
+    graph cache is emptied before the first stream; its captures, their
+    host ms, its fps); then warm end-to-end decodes fused, eager,
+    eager, fused (sha256 each, peak device memory); the device-only
+    replay of each (utils/device_decode_fps: fps, best of FPS_REPEATS
+    rounds, host waits a frame in the untimed round, signatures); one warm
+    decode of each under torch.profiler (the kernels and copies the card
+    ran and the host calls that queued them, a frame). Returns {stream:
+    {mode: numbers}}."""
+    from thor_tpu_torch.dec import fused as F
+    from thor_tpu_torch.utils import device_decode_fps as DDF
+    from thor_tpu_torch.utils.profile_decode import (host_stages,
+                                                     profile_launches)
+    t_phase = time.perf_counter()
+    out = {}
+    F.CACHE.clear()     # the streams' signatures differ: each decodes cold
+    for path in (STREAM_1080, STREAM_RA_1080):
+        t_stream = time.perf_counter()
+        want = golden_sha(path)
+        res = {m: {"e2e_fps": []} for m in ("fused", "eager")}
+        log(f"[ab] {path.name} host stages, serial: "
+            + json.dumps(host_stages(str(path))) + f"; host of card {card}")
+        s0 = dict(F.STATS)
+        t0 = time.perf_counter()
+        n, sha, _ = decode(path, dev)
+        torch.cuda.synchronize()
+        res["fused"].update(
+            cold_fps=n / (time.perf_counter() - t0),
+            cold_captures=F.STATS["captures"] - s0["captures"],
+            cold_capture_ms=F.STATS["capture_ms"] - s0["capture_ms"])
+        if sha != want:
+            raise AssertionError(f"A/B: the cold decode of {path.name} "
+                                 "differs from its golden")
+        for fused in (True, False, False, True):
+            r = res["fused" if fused else "eager"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            n, sha, _ = decode(path, dev, fused)
+            torch.cuda.synchronize()
+            r["e2e_fps"].append(n / (time.perf_counter() - t0))
+            r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            r["max_memory_reserved"] = torch.cuda.max_memory_reserved()
+            if sha != want:
+                raise AssertionError(f"A/B: {path.name} fused={fused} "
+                                     "differs from its golden")
+        res["fused"]["graph_footprint"] = F.footprint(dev)
+        for fused in (True, False):
+            d = DDF.measure(path, FPS_REPEATS, dev, fused)
+            r = res["fused" if fused else "eager"]
+            r["device_fps"] = d["device_fps"]
+            r["device_s"] = d["seconds"]
+            r["host_waits_per_frame"] = d["host_waits_per_frame"]
+            r["host_wait_sites"] = d["host_wait_sites"]
+            if fused:
+                r["signatures"] = d["signatures"]
+        for fused in (True, False):
+            (n, _, _), wall, busy, ran, calls = profile_launches(
+                lambda: decode(path, dev, fused))
+            r = res["fused" if fused else "eager"]
+            r.update(device_ops_per_frame=ran / n,
+                     launch_calls_per_frame=calls / n,
+                     profiled_busy_ms=busy, profiled_wall_ms=wall)
+        for m, r in res.items():
+            log(f"[ab] {path.name} {m}: " + json.dumps(r) + f"; card {card}")
+        log(f"[ab] {path.name}: {time.perf_counter() - t_stream:.1f} s")
+        out[path.stem] = res
+    log(f"[ab] fused / eager A/B: {time.perf_counter() - t_phase:.1f} s in "
+        f"all (host clock; cold: the stream's first fused decode after "
+        f"the graph cache is emptied, capture ms with the warm-up runs; "
+        f"e2e fps: "
+        f"warm decode_stream to host planes, "
+        f"sha256 each; device_fps: utils/device_decode_fps, inputs staged "
+        f"on the card; device_ops_per_frame: kernels and copies the card "
+        f"ran, launch_calls_per_frame: the host calls that queued them "
+        f"(a graph replay is one), torch.profiler over one warm decode; "
+        f"max_memory_allocated does not count the graphs' pool between "
+        f"replays, max_memory_reserved is the process's; graph_footprint: "
+        f"the graphs' pool, input buffers and reference stacks on the card "
+        f"after the stream's decodes, the cache holding every signature "
+        f"decoded since it was emptied); card {card}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2312,6 +2453,7 @@ def main():
     launches_ra, _ = phase_slice(
         STREAM_RA_1080, ldb + ("me_level", "mot_comp", "mot_comp_uv"),
         CIF_INTERP_STREAMS + ("RA16_long",), dev, card)
+    phase_fused_ab(dev, card)
     launches_py_ldb, launches_py_ra = phase_python_route(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches_enc = phase_encode(dev, card, Path(tmp))

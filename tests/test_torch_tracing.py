@@ -65,9 +65,21 @@ def test_host_waits_on_the_cpu_counts_nothing():
     assert not sites
 
 
+def test_host_waits_skip_the_modes_notice():
+    """The sync debug mode's one-time notice is not a wait; its reports
+    are."""
+    assert not T1.is_wait(
+        "Synchronization debug mode is a prototype feature and does not "
+        "yet detect all synchronizing operations")
+    assert T1.is_wait("called a synchronizing CUDA operation")
+
+
 def test_profile_decode_host_stages_through_the_timer():
-    """profile_decode's host stages keep their keys, now from StageTimer."""
+    """profile_decode's host stages keep their keys, now from StageTimer,
+    with the fused path's packing beside them."""
     r = host_stages(str(TESTDATA / "LDB_low_complexity.bit"))
     assert r["frames"] == 10
-    assert set(r) == {"frames", "parse_ms_per_frame", "build_ms_per_frame"}
+    assert set(r) == {"frames", "parse_ms_per_frame", "build_ms_per_frame",
+                      "pack_ms_per_frame"}
     assert r["parse_ms_per_frame"] > 0 and r["build_ms_per_frame"] > 0
+    assert r["pack_ms_per_frame"] > 0

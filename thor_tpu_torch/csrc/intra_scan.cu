@@ -89,12 +89,15 @@ __host__ __device__ __forceinline__ int slices(int s) {
 // One block. table[q] = the unit with ticket q as (t * C + plane) << 5 |
 // slice, TU after TU; *nunits = their number. Units that do not fit into
 // `cap` entries are left out (more slices than the planes' pixels allow:
-// overlapping TUs).
+// overlapping TUs). count: null, or the number of real records on the
+// device (the rest pad a bucket and make no unit).
 __global__ void __launch_bounds__(PREP_THREADS)
-intra_scan_units_kernel(const int* __restrict__ recs, int nrec, int C,
-                        int* nunits, int* table, int cap) {
+intra_scan_units_kernel(const int* __restrict__ recs, int nrec,
+                        const int* __restrict__ count, int C, int* nunits,
+                        int* table, int cap) {
   __shared__ int part[PREP_THREADS];
   const int k = threadIdx.x;
+  if (count != nullptr) nrec = min(nrec, __ldg(count));
   const int per = (nrec + PREP_THREADS - 1) / PREP_THREADS;
   const int lo = min(k * per, nrec), hi = min(lo + per, nrec);
   int sum = 0;
@@ -192,16 +195,22 @@ intra_scan_kernel(const int* __restrict__ in, int* out,
 // planes: [C, H, W] int32, read only; out: [C, H, W] int32, a copy of
 // planes that the scan updates in place; resid: [C, H, W] int32; recs:
 // [nrec, 7] int32 TU records in decode order, every TU inside the plane,
-// ty, tx and size multiples of 4, no two TUs overlapping; scratch: int32,
-// uninitialised, 2 + cap + ceil(H/4) ceil(W/4) elements with cap
+// ty, tx and size multiples of 4, no two TUs overlapping; count: null (all
+// nrec records are real), or one int32 on the device, the number of real
+// records at the head of recs (a frame's records padded to a bucket: the
+// grid and the scratch follow nrec, the work follows *count, so a CUDA
+// graph captured for the bucket serves every count in it); scratch:
+// int32, uninitialised, 2 + cap + ceil(H/4) ceil(W/4) elements with cap
 // = C min(8 nrec, nrec + H W / 512), the most units the records can make
 // (ops/intra.py: scan_scratch). Launches its four kernels on `stream`;
 // returns cudaGetLastError().
-extern "C" int thor_intra_scan(const void* planes, void* out,
-                               const void* resid, int C, int H, int W,
-                               const void* recs, int nrec, void* scratch,
-                               void* stream) {
+extern "C" int thor_intra_scan_count(const void* planes, void* out,
+                                     const void* resid, int C, int H, int W,
+                                     const void* recs, int nrec,
+                                     const void* count, void* scratch,
+                                     void* stream) {
   if (nrec <= 0) return 0;
+  const int* cnt = static_cast<const int*>(count);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int by_size = 64 * 64 / SLICE * nrec, by_area = nrec + H * W / SLICE;
   const int cap = C * (by_size < by_area ? by_size : by_area);
@@ -210,9 +219,10 @@ extern "C" int thor_intra_scan(const void* planes, void* out,
   int* table = ticket + 2;
   int* owner = table + cap;
   const int* rc = static_cast<const int*>(recs);
-  scan_prologue(rc, nrec, ticket, owner, static_cast<int*>(out), C, H, W, s);
-  intra_scan_units_kernel<<<1, PREP_THREADS, 0, s>>>(rc, nrec, C, nunits,
-                                                     table, cap);
+  scan_prologue(rc, nrec, ticket, owner, static_cast<int*>(out), C, H, W, s,
+                cnt);
+  intra_scan_units_kernel<<<1, PREP_THREADS, 0, s>>>(rc, nrec, cnt, C,
+                                                     nunits, table, cap);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int resident = sm_count() * BLOCKS_PER_SM;
@@ -222,6 +232,16 @@ extern "C" int thor_intra_scan(const void* planes, void* out,
       static_cast<const int*>(resid), C, H, W, rc, owner, table, nunits,
       ticket);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same with every record real (the entry point of the builds before
+// the count; tools/ab_kernel.py calls it on either build).
+extern "C" int thor_intra_scan(const void* planes, void* out,
+                               const void* resid, int C, int H, int W,
+                               const void* recs, int nrec, void* scratch,
+                               void* stream) {
+  return thor_intra_scan_count(planes, out, resid, C, H, W, recs, nrec,
+                               nullptr, scratch, stream);
 }
 
 extern "C" const char* thor_cuda_error_string(int err) {

@@ -99,14 +99,14 @@ template <int T>
 __global__ void __launch_bounds__(32 * WARPS)
 mc_kernel(const uint8_t* __restrict__ ref, int R, int Hp, int Wp,
           const int* __restrict__ recs, int nrec,
-          const int* __restrict__ lut, int* __restrict__ out, int H,
-          int W) {
+          const int* __restrict__ count, const int* __restrict__ lut,
+          int* __restrict__ out, int H, int W) {
   using G = Geo<T>;
   __shared__ __align__(16) WarpBuf<T> bufs[WARPS];
   WarpBuf<T>& b = bufs[threadIdx.x >> 5];
   const int lane = threadIdx.x & 31;
   const int k = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (k >= nrec) return;
+  if (k >= nrec || (count != nullptr && k >= __ldg(count))) return;
   const int c = blockIdx.y;
 
   const int rv = lane < NF ? __ldg(recs + static_cast<size_t>(k) * NF + lane)
@@ -254,28 +254,44 @@ mc_kernel(const uint8_t* __restrict__ ref, int R, int Hp, int Wp,
 }  // namespace
 
 // ref: [C, R, Hp, Wp] uint8; recs: [nrec, 13] int32 (PU pieces of at most
-// TILE x TILE, TILE = 16 for T = 6 and 8 for T = 4); lut: [P, T*T] int32;
-// out: [C, H, W] int32. Launches on `stream`; returns cudaGetLastError().
-extern "C" int thor_mc_frame(const void* ref, int C, int R, int Hp, int Wp,
-                             const void* recs, int nrec, const void* lut,
-                             int T, void* out, int H, int W, void* stream) {
+// TILE x TILE, TILE = 16 for T = 6 and 8 for T = 4); count: null (all nrec
+// records are real), or one int32 on the device, the number of real
+// records at the head of recs (the grid follows nrec, a bucket's
+// capacity, and the warps past *count return at once, so a CUDA graph
+// captured for the bucket serves every count in it); lut: [P, T*T]
+// int32; out: [C, H, W] int32. Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int thor_mc_frame_count(const void* ref, int C, int R, int Hp,
+                                   int Wp, const void* recs, int nrec,
+                                   const void* count, const void* lut, int T,
+                                   void* out, int H, int W, void* stream) {
   if (nrec <= 0) return 0;
   dim3 grid((nrec + WARPS - 1) / WARPS, C);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* rp = static_cast<const uint8_t*>(ref);
   const int* rc = static_cast<const int*>(recs);
+  const int* cp = static_cast<const int*>(count);
   const int* lp = static_cast<const int*>(lut);
   int* op = static_cast<int*>(out);
   if (T == 6) {
-    mc_kernel<6><<<grid, 32 * WARPS, 0, s>>>(rp, R, Hp, Wp, rc, nrec, lp, op,
-                                            H, W);
+    mc_kernel<6><<<grid, 32 * WARPS, 0, s>>>(rp, R, Hp, Wp, rc, nrec, cp, lp,
+                                            op, H, W);
   } else if (T == 4) {
-    mc_kernel<4><<<grid, 32 * WARPS, 0, s>>>(rp, R, Hp, Wp, rc, nrec, lp, op,
-                                            H, W);
+    mc_kernel<4><<<grid, 32 * WARPS, 0, s>>>(rp, R, Hp, Wp, rc, nrec, cp, lp,
+                                            op, H, W);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same with every record real (the entry point of the builds before
+// the count; tools/ab_kernel.py calls it on either build).
+extern "C" int thor_mc_frame(const void* ref, int C, int R, int Hp, int Wp,
+                             const void* recs, int nrec, const void* lut,
+                             int T, void* out, int H, int W, void* stream) {
+  return thor_mc_frame_count(ref, C, R, Hp, Wp, recs, nrec, nullptr, lut, T,
+                             out, H, W, stream);
 }
 
 extern "C" const char* thor_cuda_error_string(int err) {

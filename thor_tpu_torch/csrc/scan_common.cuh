@@ -43,12 +43,15 @@ static __global__ void scan_init_kernel(int* ticket, int* owner, int ncell) {
 }
 
 // owner[cell] = index of the TU that covers the 4x4 cell, and the TU's
-// pixels PENDING in all C output planes; one block per TU
+// pixels PENDING in all C output planes; one block per record, and the
+// records from *count on (when count is not null) are left alone
 static __global__ void scan_owner_kernel(const int* __restrict__ recs,
+                                         const int* __restrict__ count,
                                          int* __restrict__ owner, int cw,
                                          int* __restrict__ out, int C,
                                          int H, int W) {
   const int t = blockIdx.x;
+  if (count != nullptr && t >= __ldg(count)) return;
   const int* rc = recs + static_cast<size_t>(t) * SCAN_NF;
   const int ty = rc[0], tx = rc[1], s = rc[2], n = s >> 2;
   for (int p = threadIdx.x; p < n * n; p += blockDim.x) {
@@ -64,13 +67,17 @@ static __global__ void scan_owner_kernel(const int* __restrict__ recs,
 
 // Clears the ticket and the owner map, then fills the map and marks the
 // TUs' pixels PENDING in `out`: the two prologue kernels of either scan,
-// on `s`. owner: ceil(H/4) ceil(W/4) ints.
+// on `s`. owner: ceil(H/4) ceil(W/4) ints. count: null, or the device's
+// count of the records that are real (at most nrec; the rest pad a
+// bucket).
 static inline void scan_prologue(const int* recs, int nrec, int* ticket,
                                  int* owner, int* out, int C, int H, int W,
-                                 cudaStream_t s) {
+                                 cudaStream_t s,
+                                 const int* count = nullptr) {
   const int cw = (W + 3) >> 2, ncell = ((H + 3) >> 2) * cw;
   scan_init_kernel<<<(ncell + 255) / 256, 256, 0, s>>>(ticket, owner, ncell);
-  scan_owner_kernel<<<nrec, 128, 0, s>>>(recs, owner, cw, out, C, H, W);
+  scan_owner_kernel<<<nrec, 128, 0, s>>>(recs, count, owner, cw, out, C, H,
+                                         W);
 }
 
 // The samples one unit of work reads: see the note at the top.

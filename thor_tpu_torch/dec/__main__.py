@@ -134,6 +134,10 @@ def main(argv=None):
     ap.add_argument("output")
     ap.add_argument("--backend", choices=("torch", "numpy"), default="torch")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="queue the frame program stage by stage instead "
+                         "of replaying one CUDA graph per frame signature "
+                         "(Decoder(fused=False))")
     ap.add_argument("--mesh", metavar="GxT",
                     help="decode through the gop x tile sharded decoder "
                          "(parallel/stream.py), e.g. --mesh 2x4; slots "
@@ -161,7 +165,7 @@ def main(argv=None):
     from .decoder import Decoder
 
     dec = Decoder(device=args.device, backend=args.backend,
-                  collect_stats=True)
+                  collect_stats=True, fused=not args.eager)
     n = 0
     t0 = time.perf_counter()
     with open(args.output, "wb") as out:

@@ -7,12 +7,19 @@ Two backends, as in thor_tpu dec/decoder.py:
         or the instrumented Python FrameParser laid out as the C parse's
         frame by dec/syntax_inputs.py), tracking the window of reference
         display numbers itself;
-      - a small worker pool builds each parsed frame's inputs and copies
-        them to the device ahead of time;
-      - the main thread stacks the reference planes, queues the frame
-        program, and materializes output _DEPTH frames behind the dispatch
-        front (each frame's device->host copy is queued right after its
-        program, into pinned memory, and waited for only when yielded).
+      - a small worker pool builds each parsed frame's inputs ahead of
+        time (and, stage by stage, copies them to the device);
+      - the main thread queues the frame program and materializes output
+        _DEPTH frames behind the dispatch front (each frame's device->host
+        copy is queued right after its program, into pinned memory, and
+        waited for only when yielded). With fused=True (the default, as
+        thor_tpu's use_fused()) the workers pad each frame's inputs to
+        buckets and pack them into one pinned buffer, and the frame program
+        is one CUDA graph per frame signature (dec/fused.py): the main
+        thread copies the buffer and the reference planes into the graph's
+        inputs and replays it. fused=False queues the frame program's
+        stages one by one (dec/reconstruct.reconstruct_frame), as
+        thor_tpu's THOR_FUSED=0 runs _staged_frame.
     The reference window (33 frames, codec-padded) stays on the device, and
     so does the interpolated reference of RA / HDB streams: it is
     synthesized from two window frames (ops/interp.py) on the same stream,
@@ -45,6 +52,7 @@ from ..codec.constants import (
 from ..device import resolve_device
 from ..native import lib, parse_frame, seqhdr_from_python
 from ..ops import interp, temporal_interp
+from . import fused as F
 from .inputs import build_frame_inputs
 from .native_adapter import native_parse_to_syntax
 from .parse import FrameParser, SequenceHeader
@@ -211,8 +219,11 @@ class Decoder:
     """Decodes Thor streams.
 
     backend "torch" runs the frame program on `device` ("cuda" by default;
-    "cpu" runs the kernels' plain versions); "numpy" runs thor_tpu's host
-    oracle and uses no device (`device` is not used). parse "native" is the
+    "cpu" runs the kernels' plain versions), by default as one CUDA graph
+    per frame signature on bucketed inputs (`fused`, dec/fused.py; on the
+    CPU the same bucketed program without a graph), with fused=False
+    stage by stage; "numpy" runs thor_tpu's host oracle and uses no
+    device (`device` and `fused` are not used). parse "native" is the
     C parse, "python" the instrumented FrameParser; collect_stats forces
     "python" and fills `stats` (the counts Thordec's report prints).
 
@@ -225,12 +236,14 @@ class Decoder:
     order."""
 
     def __init__(self, device=None, backend: str = "torch",
-                 collect_stats: bool = False, parse: str = "native"):
+                 collect_stats: bool = False, parse: str = "native",
+                 fused: bool = True):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}")
         if parse not in PARSERS:
             raise ValueError(f"parse must be one of {PARSERS}")
         self.backend = backend
+        self.fused = fused
         # the bit statistics need the instrumented Python parser
         self.device = resolve_device(device) if backend == "torch" else None
         self.parse_mode = "python" if collect_stats else parse
@@ -386,7 +399,13 @@ class Decoder:
 
         def build(nf, nums):
             cfg, inp, slots = build_frame_inputs(nf, seq, nums)
-            return cfg, to_device(inp, dev), slots
+            clamped = inp.get("mc_clamped", 0)
+            if self.fused:
+                work = F.pack_frame(cfg, F.bucket_inputs(cfg, inp),
+                                    seq.bipred, dev.type == "cuda")
+            else:
+                work = to_device(inp, dev)
+            return cfg, work, slots, clamped
 
         def put(item):
             while not stop.is_set():
@@ -429,8 +448,7 @@ class Decoder:
                 fh, fut = item
                 if needs_interp(fh):
                     self._make_interp_frame(fh)
-                cfg, inp, slots = fut.result()
-                clamped = inp.get("mc_clamped", 0)
+                cfg, work, slots, clamped = fut.result()
                 if clamped:
                     self.mc_clamped += clamped
                     warnings.warn(
@@ -438,8 +456,11 @@ class Decoder:
                         "leave the padded reference and were clamped")
                 refs = [self.refs[r] if r >= 0 else self.interp_frame
                         for r in slots]
-                planes, padded = reconstruct_frame(cfg, inp, refs,
-                                                   self._luts)
+                if self.fused:
+                    planes, padded = F.run_frame(dev, work, refs)
+                else:
+                    planes, padded = reconstruct_frame(cfg, work, refs,
+                                                       self._luts)
                 dfn = fh.display_frame_num
                 self.refs = [RefFrame(*padded, dfn)] + self.refs[:-1]
                 ready.extend(reorder.put(dfn, out(planes)))
@@ -455,11 +476,12 @@ class Decoder:
 
 
 def decode_file(path: str, out_path: Optional[str] = None, device=None,
-                backend: str = "torch", parse: str = "native"):
+                backend: str = "torch", parse: str = "native",
+                fused: bool = True):
     """Decode a bitstream (backend "torch" on `device`, default "cuda";
     "numpy" on the host); write planar YUV to out_path, or return the list
     of (y, u, v) frames."""
-    dec = Decoder(device=device, backend=backend, parse=parse)
+    dec = Decoder(device=device, backend=backend, parse=parse, fused=fused)
     frames = []
     out = open(out_path, "wb") if out_path else None
     try:

@@ -1,0 +1,412 @@
+"""The decoder's frame program as one CUDA graph per frame signature.
+
+Counterpart of thor_tpu's fused frame program (dec/reconstruct_jax.py:
+use_fused :579, _jit_fused :590, _sparse_group :717, _fused_frame :735,
+_run_frame :776) and of its count buckets (_pow2pad :46;
+dec/native_inputs.py: _Group.pack :82, _pack_sparse :218, pad_tu :545).
+thor_tpu jits the whole frame once per frame configuration and input
+shapes, and pads every count to a bucket so that a few programs serve
+every frame. On the card the counterpart of one jitted program is one
+CUDA graph:
+
+  - bucket_inputs pads a frame's inputs (dec/inputs.build_frame_inputs)
+    to buckets: each residual group's TUs to powers of 4 from 16 and its
+    sparse coefficient pairs to powers of 2 from 64, as thor_tpu does;
+    the MC records and the intra TU records (the port's own layouts) to
+    powers of 4 from 16, each with its real count. Padded TUs and
+    coefficient pairs are no-ops (a zero at index 0 under densify's and
+    scatter_tu's adds); the kernels skip padded records, reading the real
+    count on the device; the deblocking strengths become 0-d arrays;
+  - pack_frame lays the padded arrays out in one host buffer (pinned for
+    a card), so that a frame's inputs cross in one copy;
+  - run_frame looks the frame's signature (the device, the frame
+    configuration, the MC filter set and the layout of the packed
+    arrays, which names every group present and every bucket size) up in
+    a cache of at most 256 entries (thor_tpu's lru_cache bound; the
+    least recently used goes first). A new entry allocates its input
+    buffers on the device, runs the frame program once on a side stream
+    (PyTorch's graph notes: cuBLAS and the kernels' libraries initialise
+    outside a capture), then captures it as a torch.cuda.CUDAGraph. Each
+    frame then copies its packed inputs and its R reference planes into
+    the entry's buffers, replays the graph on the current stream and
+    clones the outputs. The entries of a device share one graph memory
+    pool: replays run one at a time on one stream, and a replay's
+    outputs are cloned before the next one.
+
+The entries, their buffers and the reference stacks are shared by
+every decoder of the process: one thread dispatches frames to a device at
+a time (the Decoder's main thread). The sharded decoder, whose slots
+dispatch on several streams at once, stays on the eager path.
+
+On the CPU there is no graph: the same entry runs the frame program on
+its buffers through the kernels' plain versions. A capture that fails
+raises; nothing falls back to the eager path (dec/reconstruct
+.reconstruct_frame, which Decoder(fused=False) runs).
+
+Kernels 1 and 2 count their launches where their wrappers launch them.
+Under a capture they launch nothing, so an entry keeps the counts its
+capture added, takes them back, and adds them at every replay. STATS
+counts the captures (and their host milliseconds, warm-up included),
+the replays and the entries evicted.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..codec.constants import PAD_C, PAD_Y
+from ..ops.intra import intra_scan
+from ..ops.mc import mc_frame
+from .inputs import FrameConfig
+from .reconstruct import mc_luts, reconstruct_frame
+
+TU_MIN = 16         # _pow2pad's first bucket
+COEF_MIN = 64       # _sparse_group's first bucket
+MAXSIZE = 256       # _jit_fused's lru_cache bound
+ALIGN = 16          # byte alignment of each array in a packed frame
+COUNTED = (mc_frame, intra_scan)    # the kernels the frame program runs
+INTRA_PAD = (0, 0, 4, 0, 4, 4, 0)   # pad_tu's filler TU (never run)
+
+STATS = {"captures": 0, "capture_ms": 0.0, "replays": 0, "evictions": 0}
+
+_TORCH = {"|u1": torch.uint8, "|b1": torch.bool, "<i4": torch.int32}
+
+
+def pow4_bucket(n: int) -> int:
+    """thor_tpu's _pow2pad(max(n, 1)): 16, 64, 256, ..."""
+    p = TU_MIN
+    while p < n:
+        p *= 4
+    return p
+
+
+def pow2_bucket(n: int) -> int:
+    """The coefficient pairs' bucket (_pack_sparse): 64, 128, 256, ..."""
+    return max(COEF_MIN, 1 << (max(n, 1) - 1).bit_length())
+
+
+def _pad(a, n, fill):
+    out = np.full((n,) + a.shape[1:], fill, np.int32)
+    out[:len(a)] = a
+    return out
+
+
+def _bucket_group(g):
+    """One residual group: TUs to pow4_bucket, pairs to pow2_bucket."""
+    n = pow4_bucket(len(g["y"]))
+    k = pow2_bucket(len(g["cidx"]))
+    out = {"cidx": _pad(g["cidx"], k, 0), "cval": _pad(g["cval"], k, 0)}
+    for key, fill in (("y", 0), ("x", 0), ("f", 1), ("a", 0), ("sh", 1),
+                      ("pl", 0)):
+        if key in g:
+            out[key] = _pad(g[key], n, fill)
+    return out
+
+
+def bucket_inputs(cfg, inp):
+    """A frame's inputs (dec/inputs.build_frame_inputs) padded to buckets,
+    as numpy arrays: residual groups as _bucket_group; "mc_y" / "mc_c" /
+    "it_y" / "it_c" to pow4_bucket rows, with "<name>_n" the real count
+    ([1] int32); "beta" / "tc" / "tcC" as 0-d int32 arrays; the side-info
+    planes as they are. "mc_clamped", a host count, is left out."""
+    out = {}
+    for k, v in inp.items():
+        if k.startswith(("gy", "gc")):
+            out[k] = _bucket_group(v)
+        elif k in ("mc_y", "mc_c", "it_y", "it_c"):
+            out[k] = _pad(v, pow4_bucket(len(v)),
+                          INTRA_PAD if k.startswith("it") else 0)
+            out[k + "_n"] = np.array([len(v)], np.int32)
+        elif k in ("beta", "tc", "tcC"):
+            out[k] = np.array(v, np.int32)
+        elif k != "mc_clamped":
+            out[k] = v
+    return out
+
+
+def _fields(binp):
+    """[(path, array)] of the bucketed inputs in a fixed order."""
+    out = []
+    for k in sorted(binp):
+        v = binp[k]
+        if isinstance(v, dict):
+            out += [((k, kk), np.asarray(v[kk])) for kk in sorted(v)]
+        else:
+            out.append(((k,), np.asarray(v)))
+    return out
+
+
+def _offsets(layout):
+    """Byte offset of each array of `layout` and the buffer's size."""
+    offs, pos = [], 0
+    for _, dt, shape in layout:
+        offs.append(pos)
+        n = int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
+        pos += -(-n // ALIGN) * ALIGN
+    return offs, pos
+
+
+class Signature(NamedTuple):
+    """What a frame's graph depends on besides the device: the frame
+    configuration, the MC filter set (the LUT the graph reads) and the
+    packed arrays' (path, dtype, shape)."""
+    cfg: FrameConfig
+    bipred: int
+    layout: tuple
+
+
+class PackedFrame(NamedTuple):
+    sig: Signature
+    buf: torch.Tensor       # uint8, the arrays at _offsets(sig.layout)
+
+    def to(self, device):
+        return PackedFrame(self.sig, self.buf.to(device))
+
+
+def pack_frame(cfg, binp, bipred: int, pin: bool = False) -> PackedFrame:
+    """The bucketed inputs `binp` in one uint8 buffer (pinned with
+    `pin`, for a copy to a card that the host does not wait for)."""
+    fields = _fields(binp)
+    layout = tuple((path, a.dtype.str, a.shape) for path, a in fields)
+    offs, total = _offsets(layout)
+    buf = torch.empty(total, dtype=torch.uint8, pin_memory=pin)
+    raw = buf.numpy()
+    for (_, a), off in zip(fields, offs):
+        b = a.reshape(-1).view(np.uint8)
+        raw[off:off + b.size] = b
+    return PackedFrame(Signature(cfg, int(bipred), layout), buf)
+
+
+def unpack(buf, layout):
+    """The arrays of a packed frame as views of `buf` (the frame
+    program's input dict: nested for the residual groups)."""
+    out = {}
+    offs, _ = _offsets(layout)
+    for (path, dt, shape), off in zip(layout, offs):
+        dtype = _TORCH[dt]
+        n = int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
+        t = buf[off:off + n].view(dtype).view(shape)
+        if len(path) == 2:
+            out.setdefault(path[0], {})[path[1]] = t
+        else:
+            out[path[0]] = t
+    return out
+
+
+def counted_capture(run):
+    """run() with the counted kernels' launch counts restored after it:
+    (run's result, the counts it added)."""
+    before = [f.launches for f in COUNTED]
+    try:
+        out = run()
+    finally:
+        added = [f.launches - b for f, b in zip(COUNTED, before)]
+        for f, b in zip(COUNTED, before):
+            f.launches = b
+    return out, added
+
+
+class _Entry:
+    """One frame signature's input buffers, reference stacks and, on a
+    card, its graph with the graph's output planes."""
+
+    def __init__(self, sig: Signature, dev):
+        self.cfg = sig.cfg
+        self.luts = mc_luts(sig.bipred, dev)
+        _, total = _offsets(sig.layout)
+        self.flat = torch.empty(total, dtype=torch.uint8, device=dev)
+        self.inp = unpack(self.flat, sig.layout)
+        self.stacks = _stacks(dev, self.cfg) if self.cfg.R else None
+        self.graph = self.out = None
+        self.launches = [0] * len(COUNTED)
+
+    def program(self):
+        """The frame program on the entry's buffers: (planes, padded)."""
+        return reconstruct_frame(self.cfg, self.inp, None, self.luts,
+                                 self.stacks)
+
+    def load(self, pf: PackedFrame, refs):
+        """Copy a frame's packed inputs and its reference planes into the
+        entry's buffers, on the current stream."""
+        self.flat.copy_(pf.buf, non_blocking=True)
+        if self.stacks is not None:
+            sy, suv = self.stacks
+            torch.stack([r.y for r in refs], out=sy[0])
+            torch.stack([r.u for r in refs], out=suv[0])
+            torch.stack([r.v for r in refs], out=suv[1])
+
+    def capture(self, dev, pool):
+        """Warm up on a side stream, then capture the frame program into
+        the device's shared graph pool `pool`."""
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(dev)
+        side = _side_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.program()
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = self.program()
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                graph.capture_end()
+            return out
+
+        self.out, self.launches = counted_capture(capture)
+        cur.wait_stream(side)
+        self.graph = graph
+        STATS["captures"] += 1
+        STATS["capture_ms"] += (time.perf_counter() - t0) * 1e3
+
+    def replay(self):
+        """Replay the graph on the current stream; clones of its outputs."""
+        self.graph.replay()
+        for f, n in zip(COUNTED, self.launches):
+            f.launches += n
+        STATS["replays"] += 1
+        planes, padded = self.out
+        return (tuple(p.clone() for p in planes),
+                tuple(p.clone() for p in padded))
+
+
+class FrameCache:
+    """Entries by (device, signature), least recently used evicted past
+    `maxsize`. An evicted graph may still be queued: the device's current
+    stream is drained before it goes (at most once per new signature
+    beyond the bound)."""
+
+    def __init__(self, maxsize: int = MAXSIZE):
+        self.maxsize = maxsize
+        self.entries: OrderedDict = OrderedDict()
+        self.pools: dict = {}       # device -> the graph pool's handle
+
+    def pool(self, dev):
+        """The graph pool the entries of `dev` share."""
+        if dev not in self.pools:
+            with torch.cuda.device(dev):
+                self.pools[dev] = torch.cuda.graph_pool_handle()
+        return self.pools[dev]
+
+    def get(self, key, make):
+        """(entry, True if it was made now)."""
+        e = self.entries.get(key)
+        if e is not None:
+            self.entries.move_to_end(key)
+            return e, False
+        e = make()
+        self.entries[key] = e
+        if len(self.entries) > self.maxsize:
+            while len(self.entries) > self.maxsize:
+                (dev, _), old = self.entries.popitem(last=False)
+                if old.graph is not None:
+                    torch.cuda.current_stream(dev).synchronize()
+                STATS["evictions"] += 1
+            self.forget_idle_pools()
+        return e, True
+
+    def clear(self):
+        """Drop every entry, once the cards that may still run one of
+        their graphs have drained."""
+        for dev in self._graph_devices():
+            torch.cuda.synchronize(dev)
+        self.entries.clear()
+        self.forget_idle_pools()
+
+    def _graph_devices(self):
+        return {d for (d, _), e in self.entries.items()
+                if e.graph is not None}
+
+    def forget_idle_pools(self):
+        """A pool lives while a graph captured into it does: the handle of
+        a device with no graph left is stale, and the next capture there
+        takes a new one."""
+        live = self._graph_devices()
+        for dev in [d for d in self.pools if d not in live]:
+            del self.pools[dev]
+
+
+CACHE = FrameCache()
+_side: dict = {}
+_ref_stacks: dict = {}
+
+
+def _side_stream(dev):
+    if dev not in _side:
+        _side[dev] = torch.cuda.Stream(device=dev)
+    return _side[dev]
+
+
+def _stacks(dev, cfg):
+    """The reference stacks of R slots at cfg's size, shared by the
+    entries of a device (only the dispatching thread fills them, on the
+    stream that replays)."""
+    key = (dev, cfg.R, cfg.H, cfg.W)
+    if key not in _ref_stacks:
+        H, W, R = cfg.H, cfg.W, cfg.R
+        _ref_stacks[key] = (
+            torch.empty((1, R, H + 2 * PAD_Y, W + 2 * PAD_Y),
+                        dtype=torch.uint8, device=dev),
+            torch.empty((2, R, H // 2 + 2 * PAD_C, W // 2 + 2 * PAD_C),
+                        dtype=torch.uint8, device=dev))
+    return _ref_stacks[key]
+
+
+def _device(dev) -> torch.device:
+    """`dev` with its index (the cache's keys name the card)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def footprint(dev) -> dict:
+    """Device bytes the frame graphs hold on `dev`: the shared pool's
+    segments (torch.cuda.memory_snapshot; the graphs' intermediates and
+    outputs, which max_memory_allocated does not see between replays),
+    the entries' input buffers and the reference stacks."""
+    dev = _device(dev)
+    pid = CACHE.pools.get(dev)
+    pool = 0 if pid is None else sum(
+        seg["total_size"] for seg in torch.cuda.memory_snapshot()
+        if seg["device"] == dev.index
+        and tuple(seg["segment_pool_id"]) == tuple(pid))
+    mine = [e for (d, _), e in CACHE.entries.items() if d == dev]
+    return {"entries": len(mine), "pool_bytes": pool,
+            "input_bytes": sum(e.flat.numel() for e in mine),
+            "stack_bytes": sum(t.numel() for (d, *_), ts in
+                               _ref_stacks.items() if d == dev for t in ts)}
+
+
+def run_frame(dev, pf: PackedFrame, refs):
+    """Decode one frame from its packed inputs: refs, the R reference
+    objects (codec-padded .y/.u/.v uint8 tensors on `dev`) in slot
+    order. Returns (y, u, v) uint8 planes and their edge-padded copies
+    (pad 96 luma, 48 chroma), as dec/reconstruct.reconstruct_frame."""
+    dev = _device(dev)
+    e, fresh = CACHE.get((dev, pf.sig), lambda: _Entry(pf.sig, dev))
+    try:
+        e.load(pf, refs)
+        if dev.type != "cuda":
+            return e.program()
+        if fresh:
+            e.capture(dev, CACHE.pool(dev))
+    except BaseException:
+        if fresh:
+            CACHE.entries.pop((dev, pf.sig), None)
+            CACHE.forget_idle_pools()
+        raise
+    return e.replay()

@@ -4,9 +4,10 @@ Port of thor_tpu dec/reconstruct_jax.py:590-714 (the `_jit_fused` body).
 Stages, in order: sparse coefficient densify; dequant + inverse DCT per
 transform size, then scatter; block MC (CUDA kernel 1); the intra scan in
 decode order (CUDA kernel 2); deblocking, then CLPF; codec-padded
-reference planes as output. PyTorch runs eagerly, so there is no compile
-step: on the card every stage is queued on the current stream and the
-host does not wait.
+reference planes as output. Called directly (the eager path), every
+stage is queued on the current stream and the host does not wait;
+dec/fused.py captures the same stages once per frame signature as a CUDA
+graph, on inputs padded to buckets with their real counts on the device.
 """
 
 from __future__ import annotations
@@ -39,11 +40,12 @@ def to_device(inp, device):
 
 
 def mc_luts(bipred_filter: int, device):
-    """[P, T*T] int32 LUTs for luma and chroma."""
-    ly = K.build_luma_mc_lut(bipred_filter)
-    lc = K.build_chroma_mc_lut()
-    return (torch.from_numpy(ly.reshape(16, 36)).to(device),
-            torch.from_numpy(lc.reshape(64, 16)).to(device))
+    """[P, T*T] int32 LUTs for luma and chroma, one copy per device."""
+    return (K.device_table(
+                ("luma_mc_lut", bipred_filter), device,
+                lambda: K.build_luma_mc_lut(bipred_filter).reshape(16, 36)),
+            K.device_table(("chroma_mc_lut",), device,
+                           lambda: K.build_chroma_mc_lut().reshape(64, 16)))
 
 
 def residual_planes(cfg, inp, device):
@@ -72,26 +74,38 @@ def residual_planes(cfg, inp, device):
     return ry, rc
 
 
-def predict_planes(cfg, inp, refs, luts, ry, rc):
+def stack_refs(refs):
+    """The R reference frames' planes as the MC kernel's stacks: ([1, R,
+    Hp, Wp], [2, R, Hp/2, Wp/2]) uint8."""
+    return (torch.stack([r.y for r in refs])[None],
+            torch.stack([torch.stack([r.u for r in refs]),
+                         torch.stack([r.v for r in refs])]))
+
+
+def predict_planes(cfg, inp, refs, luts, ry, rc, stacks=None):
     """Inter prediction plus residual, clipped: ([H, W], [2, H/2, W/2])
-    int32; zeros on an intra frame (the intra scan fills every pixel)."""
+    int32; zeros on an intra frame (the intra scan fills every pixel).
+    stacks: stack_refs(refs), where the caller holds them already. The
+    record sets carry their real counts as "mc_y_n" / "mc_c_n" where
+    they are padded to a bucket."""
     H, W = cfg.H, cfg.W
     if cfg.R == 0:
         return torch.zeros_like(ry), torch.zeros_like(rc)
-    refY = torch.stack([r.y for r in refs])[None]
-    refUV = torch.stack([torch.stack([r.u for r in refs]),
-                         torch.stack([r.v for r in refs])])
-    py = mc_frame(refY, inp["mc_y"], luts[0], H, W)[0]
-    puv = mc_frame(refUV, inp["mc_c"], luts[1], H // 2, W // 2)
+    refY, refUV = stack_refs(refs) if stacks is None else stacks
+    py = mc_frame(refY, inp["mc_y"], luts[0], H, W, inp.get("mc_y_n"))[0]
+    puv = mc_frame(refUV, inp["mc_c"], luts[1], H // 2, W // 2,
+                   inp.get("mc_c_n"))
     return K.clip255(py + ry), K.clip255(puv + rc)
 
 
 def intra_planes(inp, y, uv, ry, rc):
     """The intra scan in decode order (kernel 1) over the whole frame's
-    predicted planes, where the frame has intra TUs."""
+    predicted planes, where the frame has intra TUs (with their real
+    counts as "it_y_n" / "it_c_n" where they are padded to a bucket)."""
     if "it_y" in inp:
-        y = intra_scan(y[None].contiguous(), ry[None], inp["it_y"])[0]
-        uv = intra_scan(uv.contiguous(), rc, inp["it_c"])
+        y = intra_scan(y[None].contiguous(), ry[None], inp["it_y"],
+                       inp.get("it_y_n"))[0]
+        uv = intra_scan(uv.contiguous(), rc, inp["it_c"], inp.get("it_c_n"))
     return y, uv
 
 
@@ -99,7 +113,9 @@ def filter_rows(cfg, inp, y, u, v, r0: int = 0):
     """Deblocking, then CLPF, of the luma rows [r0, r0 + h) of the
     unfiltered int32 planes (y [h, W], u / v the chroma rows [r0/2,
     (r0 + h)/2)); the frame's side-info maps are sliced to match. On the
-    whole frame r0 is 0. On a slice, r0 is a multiple of 64 and every
+    whole frame r0 is 0. beta / tc / tcC are ints, or 0-d int32 tensors
+    on the planes' device (dec/fused.py: a CUDA graph takes no per-frame
+    Python number). On a slice, r0 is a multiple of 64 and every
     position test of the ops stays aligned, so the slice's rows equal the
     frame's except within reach of the slice's own first and last rows
     (the deblocking's rolls and frame-edge terms), which a caller keeps
@@ -126,15 +142,15 @@ def finish_planes(y, u, v):
                        K.edge_pad(v, PAD_C))
 
 
-def reconstruct_frame(cfg, inp, refs, luts):
+def reconstruct_frame(cfg, inp, refs, luts, stacks=None):
     """Decode one frame from its device inputs.
 
     refs: the R reference objects (codec-padded .y/.u/.v uint8 tensors)
-    in slot order; luts: mc_luts(). Returns (y, u, v) uint8 planes and
-    their edge-padded copies (pad 96 luma, 48 chroma) for the reference
-    window."""
+    in slot order, or stacks: their stack_refs(); luts: mc_luts().
+    Returns (y, u, v) uint8 planes and their edge-padded copies (pad 96
+    luma, 48 chroma) for the reference window."""
     ry, rc = residual_planes(cfg, inp, luts[0].device)
-    y, uv = predict_planes(cfg, inp, refs, luts, ry, rc)
+    y, uv = predict_planes(cfg, inp, refs, luts, ry, rc, stacks)
     y, uv = intra_planes(inp, y, uv, ry, rc)
     return finish_planes(*filter_rows(cfg, inp, y, uv[0], uv[1]))
 

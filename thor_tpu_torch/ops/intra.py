@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from ..device import check_current
 from . import _build
-from .kernels import clip255
+from .kernels import check_count, clip255, real_records
 
 NF = 7
 FIELDS = ("ty", "tx", "size", "mode", "toplen", "leftlen", "cbx_nonzero")
@@ -213,13 +213,15 @@ def tu_context(P, rec):
     return left, top, tl
 
 
-def intra_scan_plain(planes, resid, recs):
+def intra_scan_plain(planes, resid, recs, count=None):
     """Sequential intra reconstruction over TU records in decode order.
 
     planes/resid: [C, H, W] int32 (C = 1 luma, or 2 for U+V, which share
-    TU geometry); recs: [N, 7] int32. Returns the updated [C, H, W] int32
-    planes, each TU predicted from the context tu_context gives it."""
+    TU geometry); recs: [N, 7] int32; count: as intra_scan's. Returns the
+    updated [C, H, W] int32 planes, each TU predicted from the context
+    tu_context gives it."""
     intra_scan_plain.calls += 1
+    recs = real_records(recs, count)
     C, H, W = planes.shape
     P = F.pad(planes.to(I32), (PADI, PADE, PADI, PADE))
     Rp = F.pad(resid.to(I32), (PADI, PADE, PADI, PADE))
@@ -247,8 +249,9 @@ def _kernel():
     if _lib is None:
         L = _build.cuda_library("intra_scan")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        L.thor_intra_scan.restype = ci
-        L.thor_intra_scan.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci, vp, vp]
+        L.thor_intra_scan_count.restype = ci
+        L.thor_intra_scan_count.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci,
+                                            vp, vp, vp]
         L.thor_cuda_error_string.restype = ctypes.c_char_p
         L.thor_cuda_error_string.argtypes = [ci]
         _lib = L
@@ -266,20 +269,24 @@ def scan_scratch(C: int, H: int, W: int, n: int, dev):
                        dtype=I32, device=dev)
 
 
-def intra_scan(planes, resid, recs):
+def intra_scan(planes, resid, recs, count=None):
     """Intra scan of C planes sharing one TU record set.
 
     planes/resid: [C, H, W] int32; recs: [N, 7] int32 from
-    build_intra_records. Returns the reconstructed [C, H, W] int32
-    planes. A CPU tensor takes the plain version; a CUDA tensor launches
-    csrc/intra_scan.cu (which writes a copy of `planes` and reads
-    `planes`, left as it was, wherever no earlier TU wrote).
+    build_intra_records; count: None (all N records are real) or a [1]
+    int32 tensor on the same device, the number of real records at the
+    head of recs (the rest pad a bucket: dec/fused.py). Returns the
+    reconstructed [C, H, W] int32 planes. A CPU tensor takes the plain
+    version; a CUDA tensor launches csrc/intra_scan.cu (which writes a
+    copy of `planes` and reads `planes`, left as it was, wherever no
+    earlier TU wrote).
     """
     if planes.device.type == "cpu":
-        return intra_scan_plain(planes, resid, recs)
+        return intra_scan_plain(planes, resid, recs, count)
     if planes.device.type != "cuda":
         raise ValueError(f"intra_scan: unsupported device {planes.device}")
     check_current("intra_scan", planes.device)
+    check_count("intra_scan", count, planes.device)
     if planes.dim() != 3 or resid.shape != planes.shape:
         raise ValueError("intra_scan: planes and resid must be [C, H, W]")
     for name, t in (("planes", planes), ("resid", resid), ("recs", recs)):
@@ -295,9 +302,10 @@ def intra_scan(planes, resid, recs):
     if n:
         L = _kernel()
         scratch = scan_scratch(C, H, W, n, planes.device)
-        err = L.thor_intra_scan(
+        err = L.thor_intra_scan_count(
             planes.data_ptr(), out.data_ptr(), resid.data_ptr(), C, H, W,
-            recs.data_ptr(), n, scratch.data_ptr(),
+            recs.data_ptr(), n, None if count is None else count.data_ptr(),
+            scratch.data_ptr(),
             torch.cuda.current_stream(planes.device).cuda_stream)
         if err:
             raise RuntimeError("intra_scan launch failed: "

@@ -31,6 +31,49 @@ def clip255(x):
     return torch.clamp(x, 0, 255)
 
 
+_TABLES: dict = {}
+
+
+def device_table(key, device, make):
+    """One copy per device of a constant table, made by make() (a numpy
+    array) at its first use on that device. A table copied from pageable
+    host memory on every call makes the host wait for the stream's queued
+    work, and cannot be captured in a CUDA graph (dec/fused.py)."""
+    device = torch.device(device)
+    t = _TABLES.get((key, device))
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"constant table {key} first used inside a "
+                               "CUDA graph capture; warm up first")
+        t = torch.from_numpy(np.ascontiguousarray(make())).to(device)
+        _TABLES[(key, device)] = t
+    return t
+
+
+def tmat(size: int, device):
+    """The float64 DCT matrix of `size` on `device`."""
+    return device_table(("tmat", size), device, lambda: TMAT[size])
+
+
+# ---------------------------------------------------------------------------
+# Bucketed record sets (dec/fused.py pads a frame's records to a bucket)
+# ---------------------------------------------------------------------------
+
+def real_records(recs, count):
+    """The head of `recs` that `count` (None, or a [1] int32 tensor: the
+    number of real records of a bucket) names; the plain versions' form of
+    the kernels' device-side count."""
+    return recs if count is None else recs[:int(count.reshape(-1)[0])]
+
+
+def check_count(fn, count, dev):
+    """The device-side count a kernel wrapper takes: None, or one int32 on
+    `dev`."""
+    if count is not None and (count.device != dev or count.dtype != I32
+                              or count.numel() != 1):
+        raise ValueError(f"{fn}: count must be one int32 on {dev}")
+
+
 # ---------------------------------------------------------------------------
 # Motion compensation weight tables (jax_kernels.py:59, :82)
 # ---------------------------------------------------------------------------
@@ -95,7 +138,7 @@ def idct_batch(coeff, size: int):
     32 * 90 * 32768 < 2^27, far inside float64's 2^53 integer range.
     float32 or TF32 would not be exact.
     """
-    M = torch.as_tensor(TMAT[size], device=coeff.device)
+    M = tmat(size, coeff.device)
     c = coeff.to(torch.float64)
     tmp = torch.matmul(M.t(), c).to(I32)
     tmp = torch.clamp((tmp + 64) >> 7, -32768, 32767).to(torch.float64)
@@ -195,7 +238,7 @@ def _arange(n, dev):
     return torch.arange(n, dtype=I32, device=dev)
 
 
-def _deblock_luma_dir(rec, dd, H, W, beta: int, tc: int, axis):
+def _deblock_luma_dir(rec, dd, H, W, beta, tc, axis):
     """One luma deblock pass (axis=1: vertical edges at columns 8k;
     axis=0: horizontal edges at rows 8k). Edges are 8 apart and the
     filter reaches 2 pixels, so every edge of a pass is independent and
@@ -259,13 +302,14 @@ def _deblock_luma_dir(rec, dd, H, W, beta: int, tc: int, axis):
     return out
 
 
-def deblock_luma(rec, dd, H: int, W: int, beta: int, tc: int):
-    """Exact two-pass luma deblock (vertical edges, then horizontal)."""
+def deblock_luma(rec, dd, H: int, W: int, beta, tc):
+    """Exact two-pass luma deblock (vertical edges, then horizontal).
+    beta, tc: ints, or 0-d int32 tensors on the plane's device."""
     rec = _deblock_luma_dir(rec, dd, H, W, beta, tc, 1)
     return _deblock_luma_dir(rec, dd, H, W, beta, tc, 0)
 
 
-def _deblock_chroma_dir(recC, dd, H, W, tc: int, axis):
+def _deblock_chroma_dir(recC, dd, H, W, tc, axis):
     """One chroma deblock pass (intra edges only, 2-tap delta) on the
     [H/2, W/2] plane; edges follow the luma 8-grid (chroma 4-grid)."""
     dev = recC.device
@@ -301,8 +345,9 @@ def _deblock_chroma_dir(recC, dd, H, W, tc: int, axis):
     return out
 
 
-def deblock_chroma(recC, dd, H: int, W: int, tc: int):
-    """Chroma deblock. H/W are LUMA dims; recC is [H/2, W/2]."""
+def deblock_chroma(recC, dd, H: int, W: int, tc):
+    """Chroma deblock. H/W are LUMA dims; recC is [H/2, W/2]; tc as
+    deblock_luma's."""
     recC = _deblock_chroma_dir(recC, dd, H, W, tc, 1)
     return _deblock_chroma_dir(recC, dd, H, W, tc, 0)
 
@@ -380,7 +425,7 @@ def fwd_transform_batch(resid, size: int, fast: bool = False):
         shift_1, shift_2 = 7, 10
         inb = inb.reshape(-1, 32, 2, 32, 2).sum(dim=(2, 4))
         size = 32
-    M = torch.as_tensor(TMAT[size][:qsize], device=resid.device)
+    M = tmat(size, resid.device)[:qsize]
     add_1, add_2 = 1 << (shift_1 - 1), 1 << (shift_2 - 1)
     # tmp[n,i,j] = sum_k M[i,k] in[n,j,k];
     # coeff[n,i,j] = sum_k M[i,k] tmp[n,j,k]
@@ -413,7 +458,11 @@ def quantize_fwd_batch(coeff, qp: int, size: int, intra: bool, zigzag_inv,
     shift2 = 21 - tr_log2size + qp // 6
 
     block = coeff[:, :qsize, :qsize].reshape(-1, Nc).to(I32)
-    zz = torch.as_tensor(zigzag_inv, dtype=torch.long, device=dev)
+    if torch.is_tensor(zigzag_inv):
+        zz = zigzag_inv.to(dev, torch.long)
+    else:
+        zz = np.asarray(zigzag_inv, np.int64)
+        zz = device_table(("zigzag", zz.tobytes()), dev, lambda: zz)
     scoeff = torch.zeros_like(block)
     scoeff[:, zz] = block
 

@@ -22,6 +22,7 @@ import torch
 
 from ..device import check_current
 from . import _build
+from .kernels import check_count, real_records
 
 NF = 13
 (R_Y0, R_X0, R_H, R_W, R_S0, R_P0, R_IY0, R_IX0, R_BI, R_S1, R_P1,
@@ -193,12 +194,14 @@ def _split_tiles(rec, tile):
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def mc_frame_plain(refs, recs, lut, H: int, W: int):
+def mc_frame_plain(refs, recs, lut, H: int, W: int, count=None):
     """Reference semantics of the kernel, in tensor ops: records are
     grouped by rectangle shape and each group's tap windows gathered at
     once. refs: [C, R, Hp, Wp] uint8; recs: [N, 13] int32; lut:
-    [P, T*T] int32. Returns [C, H, W] int32 (0 where no record writes)."""
+    [P, T*T] int32; count: as mc_frame's. Returns [C, H, W] int32 (0
+    where no record writes)."""
     mc_frame_plain.calls += 1
+    recs = real_records(recs, count)
     C = refs.shape[0]
     T = int(round(lut.shape[1] ** 0.5))
     dev = refs.device
@@ -249,28 +252,32 @@ def _kernel():
     if _lib is None:
         L = _build.cuda_library("mc")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        L.thor_mc_frame.restype = ci
-        L.thor_mc_frame.argtypes = [vp, ci, ci, ci, ci, vp, ci, vp, ci, vp,
-                                    ci, ci, vp]
+        L.thor_mc_frame_count.restype = ci
+        L.thor_mc_frame_count.argtypes = [vp, ci, ci, ci, ci, vp, ci, vp, vp,
+                                          ci, vp, ci, ci, vp]
         L.thor_cuda_error_string.restype = ctypes.c_char_p
         L.thor_cuda_error_string.argtypes = [ci]
         _lib = L
     return _lib
 
 
-def mc_frame(refs, recs, lut, H: int, W: int):
+def mc_frame(refs, recs, lut, H: int, W: int, count=None):
     """Block MC of C planes that share one record set.
 
     refs: [C, R, Hp, Wp] uint8 codec-padded references; recs: [N, 13]
-    int32 from build_mc_records; lut: [P, T*T] int32 phase weights.
-    Returns the [C, H, W] int32 prediction. A CPU tensor takes the plain
-    version; a CUDA tensor launches csrc/mc.cu.
+    int32 from build_mc_records; lut: [P, T*T] int32 phase weights;
+    count: None (all N records are real) or a [1] int32 tensor on the
+    same device, the number of real records at the head of recs (the rest
+    pad a bucket: dec/fused.py). Returns the [C, H, W] int32 prediction. A
+    CPU tensor takes the plain version; a CUDA tensor launches
+    csrc/mc.cu.
     """
     if refs.device.type == "cpu":
-        return mc_frame_plain(refs, recs, lut, H, W)
+        return mc_frame_plain(refs, recs, lut, H, W, count)
     if refs.device.type != "cuda":
         raise ValueError(f"mc_frame: unsupported device {refs.device}")
     check_current("mc_frame", refs.device)
+    check_count("mc_frame", count, refs.device)
     C, R, Hp, Wp = refs.shape
     T = int(round(lut.shape[1] ** 0.5))
     if T not in TILE or lut.shape[1] != T * T:
@@ -287,9 +294,10 @@ def mc_frame(refs, recs, lut, H: int, W: int):
     n = recs.shape[0]
     if n:
         L = _kernel()
-        err = L.thor_mc_frame(
+        err = L.thor_mc_frame_count(
             refs.data_ptr(), C, R, Hp, Wp, recs.data_ptr(), n,
-            lut.data_ptr(), T, out.data_ptr(), H, W,
+            None if count is None else count.data_ptr(), lut.data_ptr(), T,
+            out.data_ptr(), H, W,
             torch.cuda.current_stream(refs.device).cuda_stream)
         if err:
             raise RuntimeError("mc_frame launch failed: "

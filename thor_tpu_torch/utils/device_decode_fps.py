@@ -1,18 +1,21 @@
 """Device-only decode throughput of a stream.
 
     python -m thor_tpu_torch.utils.device_decode_fps [stream.bit]
-        [--reps N] [--device cpu] [--json out]
+        [--reps N] [--device cpu] [--eager] [--json out]
 
 Counterpart of thor_tpu's tools/device_decode_fps.py. A first pass
 decodes the stream serially (the C parse, dec/inputs.build_frame_inputs)
 and keeps, per frame, its inputs staged on the device, the reference
 planes it reads and, on a frame that predicts from an interpolated
 reference, the arguments of ops/interp.interpolate_frames. Then every
-frame is dispatched again back to back: interpolate_frames where the
-frame needs it (kernels 3-5), then dec/reconstruct.reconstruct_frame
-(kernels 1 and 2), with one wait for the device at the end. The host's
-parse, input build and output copies are out of the clock: the number is
-what the card sustains when the host keeps up.
+frame is dispatched again back to back as the Decoder dispatches it:
+interpolate_frames where the frame needs it (kernels 3-5), then the frame
+program (kernels 1 and 2): by default dec/fused.run_frame (the packed
+inputs, bucketed, copied into the frame signature's CUDA graph, which is
+replayed; the first pass captures every signature), with --eager
+dec/reconstruct.reconstruct_frame; one wait for the device at the end.
+The host's parse, input build and output copies are out of the clock:
+the number is what the card sustains when the host keeps up.
 
 Gate: the planes of the last timed repeat, in display order, equal the
 stream's golden (testdata/<stream>_dec.yuv or _dec.sha256); the hash is
@@ -37,6 +40,7 @@ import torch
 
 from ..bitstream.reader import BitReader, iter_frames
 from ..codec.constants import MAX_REF_FRAMES, PAD_C, PAD_Y
+from ..dec import fused as F
 from ..dec.decoder import RefFrame, interp_pair, needs_interp
 from ..dec.inputs import build_frame_inputs
 from ..dec.parse import SequenceHeader
@@ -50,11 +54,12 @@ TESTDATA = Path(__file__).resolve().parents[2] / "testdata"
 DEFAULT = str(TESTDATA / "LDB_medium_complexity_1080.bit")
 
 
-def capture(path, dev):
+def capture(path, dev, fused=True):
     """The first pass: decode serially and keep every frame's work as a
-    dict {dfn, cfg, inp (on dev), refs (per slot; None for the
-    interpolated reference), interp (interpolate_frames' arguments or
-    None)}, in decode order, with the stream's MC LUTs on dev."""
+    dict {dfn, cfg, inp (on dev: with `fused` the bucketed PackedFrame,
+    else the input dict), refs (per slot; None for the interpolated
+    reference), interp (interpolate_frames' arguments or None)}, in
+    decode order, with the stream's MC LUTs on dev."""
     payloads = iter_frames(str(path))
     first = next(payloads)
     br = BitReader(first)
@@ -75,8 +80,12 @@ def capture(path, dev):
         pos = 0
         cfg, inp, slots = build_frame_inputs(nf, seq, nums)
         fh = nf.hdr
-        f = {"dfn": fh.display_frame_num, "cfg": cfg,
-             "inp": to_device(inp, dev),
+        if fused:
+            inp = F.pack_frame(cfg, F.bucket_inputs(cfg, inp), seq.bipred) \
+                .to(dev)
+        else:
+            inp = to_device(inp, dev)
+        f = {"dfn": fh.display_frame_num, "cfg": cfg, "inp": inp,
              "refs": [refs[r] if r >= 0 else None for r in slots],
              "interp": interp_pair(refs, fh) if needs_interp(fh) else None}
         work.append(f)
@@ -87,13 +96,15 @@ def capture(path, dev):
 
 def dispatch(f, luts):
     """Queue one captured frame: its interpolated reference (kernels 3-5)
-    where it needs one, then its frame program. Returns
-    reconstruct_frame's (planes, padded planes)."""
+    where it needs one, then its frame program (a graph replay for a
+    PackedFrame). Returns reconstruct_frame's (planes, padded planes)."""
     refs = f["refs"]
     if f["interp"] is not None:
         out = interp.interpolate_frames(*f["interp"])
         ir = RefFrame(out[3], out[4], out[5], f["dfn"])
         refs = [ir if r is None else r for r in refs]
+    if isinstance(f["inp"], F.PackedFrame):
+        return F.run_frame(f["inp"].buf.device, f["inp"], refs)
     return reconstruct_frame(f["cfg"], f["inp"], refs, luts)
 
 
@@ -108,16 +119,19 @@ def golden_of(path):
         .read_text().split()[0]
 
 
-def measure(path=DEFAULT, reps=3, device=None):
+def measure(path=DEFAULT, reps=3, device=None, fused=True):
     """Re-dispatch every frame of the stream back to back `reps` times
     after one untimed repeat that counts the host waits. Returns a dict:
     frames, the seconds of each timed repeat, device_fps (frames over the
-    best repeat), the host waits per frame and their sites. Raises when
-    the last repeat's planes differ from the golden."""
+    best repeat), the host waits per frame and their sites; with `fused`
+    the frame signatures and the captures the first pass made (with their
+    host ms). Raises when the last repeat's planes differ from the
+    golden."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    work, luts = capture(path, dev)
+    stats0 = dict(F.STATS)
+    work, luts = capture(path, dev, fused)
     n = len(work)
     with host_waits(dev) as sites:
         for f in work:
@@ -145,7 +159,11 @@ def measure(path=DEFAULT, reps=3, device=None):
             "host_waits_per_frame": waits / n,
             "host_wait_sites": {f"{a}:{b}": c for (a, b), c in
                                 sorted(sites.items())},
-            "golden": kind, "device": str(dev)}
+            "golden": kind, "device": str(dev), "fused": fused,
+            "signatures": len({f["inp"].sig for f in work}) if fused
+            else None,
+            "captures": F.STATS["captures"] - stats0["captures"],
+            "capture_ms": F.STATS["capture_ms"] - stats0["capture_ms"]}
 
 
 def main(argv=None):
@@ -154,9 +172,11 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--device", default=None,
                     help="cpu runs the kernels' plain versions")
+    ap.add_argument("--eager", action="store_true",
+                    help="the frame program stage by stage, no CUDA graph")
     ap.add_argument("--json", default=None, help="also write the result here")
     args = ap.parse_args(argv)
-    r = measure(args.stream, args.reps, args.device)
+    r = measure(args.stream, args.reps, args.device, not args.eager)
     if r["device"].startswith("cuda"):
         r["card"] = torch.cuda.get_device_name(0)
     s = json.dumps(r)

@@ -6,7 +6,8 @@ The stream defaults to testdata/LDB_medium_complexity_1080.bit; give
 testdata/RA16_high_efficiency_1080.bit for the path that synthesizes
 interpolated references. Decodes the stream once to warm up, then:
   - times the host stages alone, frame by frame (C entropy parse, numpy
-    input build), on the host clock;
+    input build, the fused path's bucketing and packing), on the host
+    clock;
   - decodes it again under torch.profiler (CPU + CUDA activities) and
     sums device time by kernel, grouped into the port's CUDA kernels,
     host<->device copies and PyTorch's own kernels (residual, filters,
@@ -25,6 +26,7 @@ import torch
 from ..bitstream.reader import BitReader, iter_frames
 from ..codec.constants import MAX_REF_FRAMES
 from ..dec.decoder import Decoder
+from ..dec.fused import bucket_inputs, pack_frame
 from ..dec.inputs import build_frame_inputs
 from ..dec.parse import SequenceHeader
 from ..native import parse_frame, seqhdr_from_python
@@ -34,8 +36,9 @@ DEFAULT = "testdata/LDB_medium_complexity_1080.bit"
 
 
 def host_stages(path):
-    """Mean host ms per frame of the parse and the input build, run
-    serially (the decoder overlaps them in threads)."""
+    """Mean host ms per frame of the parse, the input build and the fused
+    path's bucketing and packing (dec/fused.py), run serially (the decoder
+    overlaps them in threads)."""
     payloads = list(iter_frames(path))
     br = BitReader(payloads[0])
     seq = SequenceHeader.read(br)
@@ -47,13 +50,16 @@ def host_stages(path):
         with timer.stage("parse"):
             nf = parse_frame(p, pos, cs, nums)
         with timer.stage("build"):
-            build_frame_inputs(nf, seq, nums)
+            cfg, inp, _ = build_frame_inputs(nf, seq, nums)
+        with timer.stage("pack"):
+            pack_frame(cfg, bucket_inputs(cfg, inp), seq.bipred)
         pos = 0
         nums = [nf.hdr.display_frame_num] + nums[:-1]
     n = len(payloads)
     return {"frames": n,
             "parse_ms_per_frame": timer.totals["parse"] / n * 1e3,
-            "build_ms_per_frame": timer.totals["build"] / n * 1e3}
+            "build_ms_per_frame": timer.totals["build"] / n * 1e3,
+            "pack_ms_per_frame": timer.totals["pack"] / n * 1e3}
 
 
 def _group(name: str) -> str:
@@ -75,17 +81,26 @@ def _group(name: str) -> str:
     return "PyTorch kernels"
 
 
-def profile_run(run):
-    """Runs `run()` under torch.profiler (CPU + CUDA activities), ending
-    in a synchronize: (run's result, wall ms, device ms by group, the 12
-    kernels with most device time as (ms, launches, name), launches)."""
+# the host calls that queue work on the card, as the profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
+                "cuMemcpy", "cuMemset")
+
+
+def _profiled(run):
+    """(run's result, wall ms, key_averages()) of `run()` under
+    torch.profiler (CPU + CUDA activities), ending in a synchronize."""
     with device_trace(None, "cuda") as prof:
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    groups, kernels, launches = {}, [], 0
-    for e in prof.key_averages():
+    return result, wall, prof.key_averages()
+
+
+def _device_events(averages):
+    """(device us, count, name) of each kernel or copy the card ran."""
+    for e in averages:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -93,12 +108,35 @@ def profile_run(run):
         if not us or e.key.startswith("aten::") or e.key.startswith("cuda") \
                 or e.key == "Activity Buffer Request":
             continue
-        g = _group(e.key)
+        yield us, e.count, e.key
+
+
+def profile_run(run):
+    """Runs `run()` under torch.profiler (CPU + CUDA activities), ending
+    in a synchronize: (run's result, wall ms, device ms by group, the 12
+    kernels with most device time as (ms, launches, name), launches)."""
+    result, wall, averages = _profiled(run)
+    groups, kernels, launches = {}, [], 0
+    for us, count, key in _device_events(averages):
+        g = _group(key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
-        kernels.append((us / 1e3, e.count, e.key[:90]))
-        launches += e.count
+        kernels.append((us / 1e3, count, key[:90]))
+        launches += count
     kernels.sort(reverse=True)
     return result, wall, groups, kernels[:12], launches
+
+
+def profile_launches(run):
+    """`run()` under torch.profiler: (run's result, wall ms, device busy
+    ms, the kernels and copies the card ran, the host calls that queued
+    work (LAUNCH_CALLS: a CUDA graph's replay is one))."""
+    result, wall, averages = _profiled(run)
+    busy = ran = 0
+    for us, count, _ in _device_events(averages):
+        busy += us / 1e3
+        ran += count
+    calls = sum(e.count for e in averages if e.key.startswith(LAUNCH_CALLS))
+    return result, wall, busy, ran, calls
 
 
 def device_profile(path, dev):
