@@ -65,11 +65,12 @@ Phases (any failure exits nonzero):
      1080p crop in the LDB form of LDB_medium_complexity_1080.bit's header
      (I P P P, two references, bipred), each frame with the counters set
      to 0 just before and read just after (mc_frame on every P frame,
-     encode_scan on every P frame with intra leaves, no plain call), its
-     stage times, peak memory and PSNR-Y, then the same encode with every
-     frame under torch.profiler (kernel launches, device busy and idle
-     share), the P-frame fps, and the decode of the stream back to the
-     reconstruction; the thor_tpu P/B streams ldb_qcif and ra_qcif byte for
+     encode_scan on every P frame with intra leaves, rdoq_light, no plain
+     call; on the fused path, the default, a frame that captures its
+     final program runs it twice), its stage times, captures, peak memory
+     and PSNR-Y, the P-frame fps, and the decode of the stream back to
+     the reconstruction (the profile of its P frames moved to the fused
+     phase below, both paths); the thor_tpu P/B streams ldb_qcif and ra_qcif byte for
      byte, the RA one through kernels 3-5 on its interpolated references.
      Then the host mirror encoder (device_encode=0: the block search in
      numpy on the host, the filters and references on the card): the four
@@ -120,13 +121,25 @@ Phases (any failure exits nonzero):
      key above 0 and no error; each child counts the kernels over its own
      process from 0 and must launch the kernels of its path, with no plain
      call but the synthetic frame's CPU reference; its line and seconds;
-  5. a {"kernels": [...]} JSON line (six kernels; mc_frame and encode_scan
-     with their launches in the P/B encode; each with its launches over
+     Then the device encoder's fused P/B programs (enc/fused.py): the
+     zero-run pass kernel (csrc/rdoq.cu) against its plain version at
+     the trials' 1080p shapes (luma and U+V, every size; timed) and on
+     rows built to fire it; kernel 6 on records padded to a bucket with
+     the count on the card (also 0) against the unpadded launch; frames
+     0-2 of the 1080p LDB form fused (cold), eager, eager, fused, equal
+     bytes, each path decoded back to its reconstruction, with host
+     waits, stage times, captures, capture ms, launches and host launch
+     calls a P frame, the graphs' footprint and each path's device-only
+     replay fps; then one cold fused single pass over all 5 frames of
+     the crop, with its captures and capture ms by P frame;
+  5. a {"kernels": [...]} JSON line (six kernels and rdoq; mc_frame and
+     encode_scan with their launches in the P/B encode; each with its launches over
      the mirror encodes, over the two collect_stats decodes, over the 4x1
      sharded RA16 decode, over the sharded 1080p RA-form encode, in one
      round of each replay, per synthetic frame, over the 4K encode and
      over each bench child);
   6. last line: {"ok": true, "device": {...}}.
+Every logged line also goes to chiprun_out/chip_smoke.log in full.
 Imports nothing of JAX or thor_tpu. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -161,8 +174,13 @@ INT_OPS_PER_S = 67e12         # float32 outside the tensor cores: the
 #                               guide's table has no int32 rate
 
 
+_log_file = None      # chiprun_out/chip_smoke.log: every line, in full
+
+
 def log(*a):
     print(*a, flush=True)
+    if _log_file is not None:
+        print(*a, file=_log_file, flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -877,7 +895,7 @@ def count_launches(r1, r2, ratio, pos):
     TI.synthesize(*level0)
     torch.cuda.synchronize()
     n_all = profile_run(lambda: TI.interpolate_frames(r1, r2, ratio, pos))[4]
-    _, _, _, top, n_tail = profile_run(lambda: TI.synthesize(*level0))
+    _, _, _, top, n_tail, _ = profile_run(lambda: TI.synthesize(*level0))
     log(f"[launches] interpolate_frames on the 1080p RA16 frame: {n_all} "
         f"kernels; from level 0's maps to the three padded planes "
         f"(ops/interp.synthesize): {n_tail}: "
@@ -916,9 +934,9 @@ def decode(path, dev, fused=True):
     stream) of one decode (by default through the frame graphs); fails if
     an MC window left the padded plane, or if the fused decode replayed
     fewer graphs than it decoded frames."""
-    from thor_tpu_torch.dec import fused as F
+    from thor_tpu_torch.ops import graphs as G
     from thor_tpu_torch.dec.decoder import Decoder
-    r0 = F.STATS["replays"]
+    r0 = G.STATS["replays"]
     dec = Decoder(device=dev, fused=fused)
     h = hashlib.sha256()
     keep = [] if path not in (STREAM_1080, STREAM_RA_1080) else None
@@ -932,7 +950,7 @@ def decode(path, dev, fused=True):
     if dec.mc_clamped:
         raise AssertionError(f"{path.name}: {dec.mc_clamped} MC windows "
                              "leave the padded reference plane")
-    replays = F.STATS["replays"] - r0
+    replays = G.STATS["replays"] - r0
     if fused and replays < n:
         raise AssertionError(f"{path.name}: {replays} graph replays for "
                              f"{n} frames")
@@ -943,11 +961,13 @@ def all_counters():
     from thor_tpu_torch.ops import enc_intra as EI
     from thor_tpu_torch.ops import interp as TI
     from thor_tpu_torch.ops import intra as IT
+    from thor_tpu_torch.ops import kernels as K
     from thor_tpu_torch.ops import mc as M
     return ((M.mc_frame, IT.intra_scan, TI.me_level, TI.mot_comp,
-             TI.mot_comp_uv, EI.encode_scan),
+             TI.mot_comp_uv, EI.encode_scan, K.rdoq_light),
             (M.mc_frame_plain, IT.intra_scan_plain, TI.me_level_plain,
-             TI.mot_comp_plain, TI.mot_comp_uv_plain, EI.encode_scan_plain))
+             TI.mot_comp_plain, TI.mot_comp_uv_plain, EI.encode_scan_plain,
+             K._rdoq_light))
 
 
 def zero_counters():
@@ -970,13 +990,13 @@ def counted_decode(path, dev, must_launch):
     version been called. The decode goes through the frame graphs (one
     replay per frame at least, decode()); the captures it made (a cold
     signature: warm-up, capture) and their host ms are logged."""
-    from thor_tpu_torch.dec import fused as F
-    s0 = dict(F.STATS)
+    from thor_tpu_torch.ops import graphs as G
+    s0 = dict(G.STATS)
     zero_counters()
     n, sha, _ = decode(path, dev)
     launches, plain_calls = read_counters()
     per_frame = {k: round(v / n, 3) for k, v in launches.items()}
-    d = {k: F.STATS[k] - s0[k] for k in s0}
+    d = {k: G.STATS[k] - s0[k] for k in s0}
     log(f"[slice] {path.name}: launches {launches} ({per_frame} per "
         f"frame, the captures' warm-up runs included); plain calls "
         f"{plain_calls}; {d['replays']} graph replays for {n} frames, "
@@ -1008,10 +1028,10 @@ def timed_decodes(path, want, dev, card):
     ending in torch.cuda.synchronize(), sha256 checked every time; they
     replay the graphs the counted decode captured (none is captured
     again)."""
-    from thor_tpu_torch.dec import fused as F
+    from thor_tpu_torch.ops import graphs as G
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    c0 = F.STATS["captures"]
+    c0 = G.STATS["captures"]
     fps = []
     for _ in range(FPS_REPEATS):
         t0 = time.perf_counter()
@@ -1028,7 +1048,7 @@ def timed_decodes(path, want, dev, card):
         f"{', '.join(f'{x:.3f}' for x in fps)}; spread "
         f"{(max(fps) - min(fps)) / med * 100:.1f} % of the median; host "
         f"clock, each ends in torch.cuda.synchronize(); "
-        f"{F.STATS['captures'] - c0} captures); "
+        f"{G.STATS['captures'] - c0} captures); "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} B; "
         f"card {card}")
 
@@ -1064,26 +1084,26 @@ def phase_fused_ab(dev, card):
     ran and the host calls that queued them, a frame). Returns {stream:
     {mode: numbers}}."""
     from thor_tpu_torch.dec import fused as F
+    from thor_tpu_torch.ops import graphs as G
     from thor_tpu_torch.utils import device_decode_fps as DDF
-    from thor_tpu_torch.utils.profile_decode import (host_stages,
-                                                     profile_launches)
+    from thor_tpu_torch.utils.profile_decode import host_stages, profile_run
     t_phase = time.perf_counter()
     out = {}
-    F.CACHE.clear()     # the streams' signatures differ: each decodes cold
+    G.CACHE.clear()     # the streams' signatures differ: each decodes cold
     for path in (STREAM_1080, STREAM_RA_1080):
         t_stream = time.perf_counter()
         want = golden_sha(path)
         res = {m: {"e2e_fps": []} for m in ("fused", "eager")}
         log(f"[ab] {path.name} host stages, serial: "
             + json.dumps(host_stages(str(path))) + f"; host of card {card}")
-        s0 = dict(F.STATS)
+        s0 = dict(G.STATS)
         t0 = time.perf_counter()
         n, sha, _ = decode(path, dev)
         torch.cuda.synchronize()
         res["fused"].update(
             cold_fps=n / (time.perf_counter() - t0),
-            cold_captures=F.STATS["captures"] - s0["captures"],
-            cold_capture_ms=F.STATS["capture_ms"] - s0["capture_ms"])
+            cold_captures=G.STATS["captures"] - s0["captures"],
+            cold_capture_ms=G.STATS["capture_ms"] - s0["capture_ms"])
         if sha != want:
             raise AssertionError(f"A/B: the cold decode of {path.name} "
                                  "differs from its golden")
@@ -1111,8 +1131,9 @@ def phase_fused_ab(dev, card):
             if fused:
                 r["signatures"] = d["signatures"]
         for fused in (True, False):
-            (n, _, _), wall, busy, ran, calls = profile_launches(
+            (n, _, _), wall, groups, _, ran, calls = profile_run(
                 lambda: decode(path, dev, fused))
+            busy = sum(groups.values())
             r = res["fused" if fused else "eager"]
             r.update(device_ops_per_frame=ran / n,
                      launch_calls_per_frame=calls / n,
@@ -1595,8 +1616,13 @@ ENC_1080_PB = dict(width=1920, height=1080, qp=32, num_frames=4,
                    device_encode=1, max_num_ref=2, enable_bipred=1,
                    deblocking=1, clpf=1, use_block_contexts=1,
                    encoder_speed=0)
-PB_STAGES = ("me", "trials", "intra_search", "decide", "second_chance",
-             "final", "emit", "filters")
+# a P/B frame's stages: on the fused path (the default) ME, the trials
+# and the intra search are one program, "measure" (enc/fused.py); stage by
+# stage (fused=False) they are "me", "trials" and "intra_search"
+PB_STAGES = ("measure", "decide", "second_chance", "final", "emit",
+             "filters")
+EAGER_PB_STAGES = ("me", "trials", "intra_search", "decide",
+                   "second_chance", "final", "emit", "filters")
 
 
 def counted_encoder(base):
@@ -1626,12 +1652,11 @@ def phase_encode_pb(dev, card, out_dir):
     Encoder (record=True: its P frames' records) with its
     reconstructions."""
     from thor_tpu_torch.enc.encoder import Encoder
-    from thor_tpu_torch.utils.profile_encode import ProfiledEncoder
     from thor_tpu_torch.utils.snr import snr_plane
     from tools.gen_torch_enc_goldens import golden_path, load_frames
 
     # 1. full width: I P P P at 1920x1080, counters and peak memory per
-    # frame, then the same encode with every frame under torch.profiler
+    # frame (phase_encode_fused profiles the P frames of both paths)
     frames = frames_1080(4)
     out = out_dir / "enc_1080_pb.bit"
     enc = counted_encoder(Encoder)(enc_params(ENC_1080_PB), record=True)
@@ -1639,16 +1664,10 @@ def phase_encode_pb(dev, card, out_dir):
     recons = enc.encode_sequence(frames, str(out))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    prof = ProfiledEncoder(enc_params(ENC_1080_PB))
-    prof_out = out_dir / "enc_1080_pb_prof.bit"
-    prof.encode_sequence(frames, str(prof_out))
-    if prof_out.read_bytes() != out.read_bytes():
-        raise AssertionError("the profiled 1080p P/B encode wrote other "
-                             "bytes")
     total = {}
     fps = []
-    for i, (ft, (launches, plain, peak), pr) in enumerate(zip(
-            enc.frame_times, enc.counts, prof.profiles)):
+    for i, (ft, (launches, plain, peak)) in enumerate(zip(
+            enc.frame_times, enc.counts)):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         psnr = snr_plane(frames[i][0], recons[i][0])
@@ -1660,29 +1679,28 @@ def phase_encode_pb(dev, card, out_dir):
             what = (f"P frame, {ft['pus']} MC PUs, {ft['intra_leaves']} "
                     f"intra leaves")
             fps.append(1.0 / sum(ft[k] for k in stages))
-        busy = sum(pr[1].values())
         log(f"[slice] 1080p LDB-form encode, frame {i} ({what}): "
             + ", ".join(f"{k} {ft[k] * 1e3:.1f} ms" for k in stages)
             + f" (host clock, each stage ends in a wait for the device); "
             f"mc_frame {launches['mc_frame']} / encode_scan "
-            f"{launches['encode_scan']} launches; plain calls "
-            f"{sum(plain.values())}; {pr[3]} kernel launches in all "
-            f"(torch.profiler, profiled run: wall {pr[0]:.1f} ms, device busy "
-            f"{busy:.1f} ms, idle {max(0.0, 1 - busy / pr[0]) * 100:.1f} %); "
-            f"max_memory_allocated={peak} B; PSNR-Y {psnr:.3f} dB")
+            f"{launches['encode_scan']} / rdoq_light "
+            f"{launches['rdoq_light']} launches; plain calls "
+            f"{sum(plain.values())}; graphs captured "
+            f"{ft.get('captures', 0)}; max_memory_allocated={peak} B; "
+            f"PSNR-Y {psnr:.3f} dB")
         if any(plain.values()):
             raise AssertionError(f"frame {i} called a plain version")
-        if i and (launches["mc_frame"] != 2 or not ft["pus"]
+        # the final program runs twice in a frame that captures it (its
+        # warm-up, then the replay)
+        runs = 1 + ft.get("final_captures", 0)
+        if i and (launches["mc_frame"] != 2 * runs or not ft["pus"]
                   or bool(launches["encode_scan"]) != bool(ft["intra_leaves"])
-                  or launches["encode_scan"] not in (0, 2)):
+                  or launches["encode_scan"] not in (0, 2 * runs)
+                  or not launches["rdoq_light"]):
             raise AssertionError(f"P frame {i} did not reconstruct through "
                                  "mc_frame and (on intra leaves) "
-                                 "encode_scan")
-    _, groups_p, top_p, _ = prof.profiles[-1]
-    log(f"[slice] 1080p LDB-form encode, frame {len(prof.profiles) - 1} "
-        f"under torch.profiler (CPU + CUDA activities): device ms by group "
-        f"{ {k: round(v, 3) for k, v in groups_p.items()} }; top kernels "
-        f"(ms, launches, name) {top_p[:6]}")
+                                 "encode_scan, or quantized without "
+                                 "rdoq_light")
     med = sorted(fps)[len(fps) // 2]
     log(f"[slice] 1080p P-frame encode fps={med:.4f} (median of frames "
         f"1-3: {', '.join(f'{x:.4f}' for x in fps)}; spread "
@@ -1717,6 +1735,243 @@ def phase_encode_pb(dev, card, out_dir):
             raise AssertionError(f"{name}: the port's stream differs from "
                                  f"thor_tpu's or skipped a kernel of {must}")
     return total, enc, recons
+
+
+def rdoq_rows_1080(frames, s, chroma, dev):
+    """(q, scoeff, last) of the trials' zero-run pass at size s of a 1080p
+    P frame (luma, or U and V stacked): frame 1's blocks against frame 0
+    at zero motion, transformed and quantized with the inter offsets at
+    QP 32 (the chroma QP for chroma) up to the pass."""
+    from thor_tpu_torch.codec.constants import CHROMA_QP, zigzag_for
+    from thor_tpu_torch.ops import kernels as K
+    b = s // 2 if chroma else s
+    planes = (1, 2) if chroma else (0,)
+    blocks = []
+    for p in planes:
+        cur, ref = (torch.from_numpy(frames[i][p]).to(dev).int()
+                    for i in (1, 0))
+        H, W = cur.shape
+        HB, WB = H // b, W // b
+
+        def tiles(x):
+            return x[:HB * b, :WB * b].reshape(HB, b, WB, b) \
+                .permute(0, 2, 1, 3).reshape(-1, b, b)
+        blocks.append(tiles(cur) - tiles(ref))
+    resid = torch.cat(blocks)
+    qp = int(CHROMA_QP[32]) if chroma else 32
+    coeff = K.fwd_transform_batch(resid, b, False)
+    q, sco, last, _ = K.quant_scan(coeff, qp, b, False,
+                                   zigzag_for(min(b, 16)), chroma)
+    return q, sco, last, qp, b
+
+
+def phase_rdoq(dev, frames):
+    """csrc/rdoq.cu against its plain version (ops/kernels._rdoq_light)
+    on the same tensors on the card: at the trials' 1080p shapes (luma and
+    chroma, every size: one variant's launches), timed, and on rows built
+    to fire the pass (tools/trigger_rows.py). Returns (rows, max_err) like
+    phase_kernels."""
+    from thor_tpu_torch.codec.constants import zigzag_for
+    from thor_tpu_torch.ops import kernels as K
+    from tools.trigger_rows import trigger_blocks
+    rows, max_err = {"rdoq": []}, {"rdoq": 0}
+
+    def check(label, q, sco, last, qp, b, chroma, timed):
+        lg, Nc = int(np.log2(b)), min(b, 16) ** 2
+        got = K.rdoq_light(q, sco, last, qp, lg, Nc, chroma)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = K._rdoq_light(q, sco, last, qp, lg, Nc, chroma)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got - want).abs().max().item()) if got.numel() else 0
+        changed = int((want != q).sum().item())
+        max_err["rdoq"] = max(max_err["rdoq"], err)
+        if err:
+            raise AssertionError(f"rdoq[{label}]: kernel differs from its "
+                                 f"plain version (max |err| {err})")
+        what = (f"rdoq[{label}: {q.shape[0]} rows of {Nc}, qp {qp}, "
+                f"{changed} levels changed]")
+        if not timed:
+            log(f"[kernel] {what} equal to plain (plain_ms={plain_ms:.1f})")
+            return
+        # the output written once, the levels read up to each row's last,
+        # `last`, and three raw coefficients per level changed
+        upto = int((last.clamp(max=Nc - 1) + 1).clamp(min=0).sum().item())
+        nbytes = 4 * (q.numel() + upto + last.numel() + 3 * changed)
+        ops = 8 * upto
+        b_ms, b_by = bound_ms(nbytes, ops)
+        ms = time_ms(lambda: K.rdoq_light(q, sco, last, qp, lg, Nc, chroma),
+                     warmup=2, iters=10)
+        log(f"[kernel] {what} equal to plain; kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.2f} bound_ms={b_ms:.5f} ({b_by})")
+        rows["rdoq"].append((ms, plain_ms, b_ms, b_by, (nbytes, ops)))
+
+    for s in (8, 16, 32, 64):
+        for chroma in (False, True):
+            q, sco, last, qp, b = rdoq_rows_1080(frames, s, chroma, dev)
+            check(f"1080p trial {s}x{s} {'U+V' if chroma else 'Y'}", q, sco,
+                  last, qp, b, chroma, timed=True)
+    for b in (4, 8, 16, 32, 64):
+        for chroma in (False, True):
+            rng = np.random.default_rng(b * 2 + chroma)
+            coeff = torch.from_numpy(trigger_blocks(rng, b, 35, 4000)).to(dev)
+            q, sco, last, _ = K.quant_scan(coeff, 35, b, False,
+                                           zigzag_for(min(b, 16)), chroma)
+            check(f"trigger rows {b}x{b} {'chroma' if chroma else 'luma'}",
+                  q, sco, last, 35, b, chroma, timed=False)
+    return rows, max_err
+
+
+def phase_encode_fused(dev, card, out_dir):
+    """The device encoder's P/B frames as CUDA graphs (enc/fused.py, the
+    Encoder's default) against the stage-wise path (fused=False): first
+    csrc/rdoq.cu against its plain version (phase_rdoq) and kernel 6 on
+    records padded to a bucket with the count on the card against the
+    unpadded launch; then frames 0-2 of the 1080p LDB form (ENC_1080_PB),
+    in turns fused (cold: no encoder entry cached), eager, eager, fused,
+    each with record=True, its host waits a P frame by site, its stage
+    times, captures and capture ms; gates: the four streams' bytes equal,
+    each path's decode equal to its reconstruction; then each path's P
+    frames under torch.profiler (kernel launches and host launch calls a
+    P frame, device busy and idle share), the graphs' footprint, and each
+    path's device-only replay (utils/device_encode_fps.replay); last, a
+    cold fused single pass over all 5 frames of the crop
+    (utils/device_encode_fps.measure: captures and capture ms by P frame,
+    its replay gated). Returns (rows, max_err, the launches of the cold
+    fused encode by kernel). The cache loses the encoder's entries before
+    the first turn and before the single pass; the decoder's stay."""
+    from thor_tpu_torch.dec import fused as F
+    from thor_tpu_torch.enc.fused import EncEntry
+    from thor_tpu_torch.ops import enc_intra as EI, graphs as G
+    from thor_tpu_torch.utils import device_encode_fps as DEF
+    from thor_tpu_torch.utils.profile_encode import ProfiledEncoder
+
+    t_phase = time.perf_counter()
+    frames = frames_1080(3)
+    rows, max_err = phase_rdoq(dev, frames)
+    for seed, (C, H, W, lo, hi) in enumerate(((1, 1024, 1920, 8, 64),
+                                              (2, 512, 960, 4, 32))):
+        planes, org, recs = random_enc_case(40 + seed, C, H, W, lo, hi, dev)
+        n = recs.shape[0]
+        pad = torch.from_numpy(F._pad(recs.cpu().numpy(), F.pow4_bucket(n),
+                                      F.INTRA_PAD)).to(dev)
+        cnt = torch.tensor([n], dtype=torch.int32, device=dev)
+        p0, q0 = EI.encode_scan(planes, org, recs, 32, False, False)
+        p1, q1 = EI.encode_scan(planes, org, pad, 32, False, False,
+                                count=cnt)
+        # a frame with no intra leaf runs the scan with a count of 0
+        p2, q2 = EI.encode_scan(planes, org, pad, 32, False, False,
+                                count=torch.zeros_like(cnt))
+        err = max(int((p0 - p1).abs().max().item()),
+                  int((q0.int() - q1[:n].int()).abs().max().item()),
+                  int(q1[n:].abs().max().item()),
+                  int((p2 - planes).abs().max().item()),
+                  int(q2.abs().max().item()))
+        max_err["encode_scan"] = max(max_err.get("encode_scan", 0), err)
+        log(f"[fused-enc] encode_scan on {n} TUs ({'Y' if C == 1 else 'UV'}"
+            f" {W}x{H}) padded to {len(pad)} with the count on the card: "
+            f"max |err| {err} against the unpadded launch (and, with a "
+            f"count of 0, against the planes as they were)")
+        if err:
+            raise AssertionError("encode_scan with a device count differs "
+                                 "from the unpadded launch")
+
+    fields = dict(ENC_1080_PB, num_frames=3)
+    res = {m: {"e2e_s": [], "stages": []} for m in ("fused", "eager")}
+    streams, encs = {}, {}
+    # the encoder's entries go, so that the first turn captures; the
+    # decoder's graphs stay for the later phases' warm decodes
+    torch.cuda.synchronize()
+    G.CACHE.drop(EncEntry)
+    launches_cold = None
+    for turn, fused in enumerate((True, False, False, True)):
+        m = "fused" if fused else "eager"
+        r = res[m]
+        enc = DEF.WaitCounted(enc_params(fields), fused=fused, record=True)
+        out = out_dir / f"enc_1080_{m}_{turn}.bit"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s0 = dict(G.STATS)
+        if turn == 0:
+            zero_counters()
+        t0 = time.perf_counter()
+        recons = enc.encode_sequence(frames, str(out))
+        torch.cuda.synchronize()
+        r["e2e_s"].append(time.perf_counter() - t0)
+        if turn == 0:
+            launches_cold, plain = read_counters()
+            if any(plain.values()) or not all(launches_cold[k] for k in (
+                    "mc_frame", "rdoq_light")):
+                raise AssertionError(f"the fused 1080p encode: launches "
+                                     f"{launches_cold}, plain calls {plain}")
+        lc = DEF.live_counts(enc)
+        r.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 max_memory_reserved=torch.cuda.max_memory_reserved(),
+                 host_waits_per_pb_frame=lc["live_host_waits_per_pb_frame"],
+                 host_wait_sites=lc["live_host_wait_sites"])
+        r["stages"].append([{k: round(v * 1e3, 2) if isinstance(v, float)
+                             else v for k, v in ft.items()}
+                            for ft in enc.frame_times[1:]])
+        r.setdefault("captures", []).append(G.STATS["captures"]
+                                            - s0["captures"])
+        r.setdefault("capture_ms", []).append(G.STATS["capture_ms"]
+                                              - s0["capture_ms"])
+        streams.setdefault(m, out.read_bytes())
+        if out.read_bytes() != streams["fused"]:
+            raise AssertionError(f"the 1080p LDB-form encode, {m} turn "
+                                 f"{turn}, wrote other bytes than the fused "
+                                 "path")
+        if turn in (0, 1):
+            decode_equals(out, recons, dev, f"1080p LDB-form stream ({m})")
+        encs[m] = (enc, recons)
+    res["fused"]["graph_footprint"] = F.footprint(dev)
+    res["fused"]["signatures"] = sum(
+        1 + len(e.finals) + (e.extra.graph is not None)
+        for e in G.CACHE.entries.values() if isinstance(e, EncEntry))
+    for m, fused in (("fused", True), ("eager", False)):
+        prof = ProfiledEncoder(enc_params(fields), fused=fused)
+        prof.encode_sequence(frames, str(out_dir / f"enc_1080_prof_{m}.bit"))
+        pb = prof.profiles[1:]
+        wall = sum(p[0] for p in pb)
+        busy = sum(sum(p[1].values()) for p in pb)
+        res[m].update(
+            kernel_launches_per_pb_frame=sum(p[3] for p in pb) / len(pb),
+            host_launch_calls_per_pb_frame=sum(p[4] for p in pb) / len(pb),
+            profiled_wall_ms_per_pb_frame=wall / len(pb),
+            profiled_busy_ms_per_pb_frame=busy / len(pb),
+            profiled_idle_share=max(0.0, 1 - busy / wall))
+        d = DEF.replay(*encs[m], reps=FPS_REPEATS)
+        res[m].update(device_only_fps=d["device_fps"],
+                      replay_s=d["seconds"],
+                      replay_host_waits_per_frame=d["host_waits_per_frame"])
+    for m, r in res.items():
+        log(f"[fused-enc] 1080p LDB-form I P P, {m}: " + json.dumps(r)
+            + f"; card {card}")
+    # a fresh single pass over every frame of the crop: how often a P
+    # frame still captures a program once the first ones are in
+    G.CACHE.drop(EncEntry)
+    one = DEF.measure(frames_1080(5), {k: v for k, v in ENC_1080_PB.items()
+                                       if k != "num_frames"},
+                      reps=1, device=dev)
+    log("[fused-enc] one cold single-pass encode of the 5 frames of the "
+        "1080p crop (fused): " + json.dumps(
+            {k: one[k] for k in ("encode_seconds", "captures_by_pb_frame",
+                                 "capture_ms_by_pb_frame", "captures",
+                                 "capture_ms", "device_fps",
+                                 "live_host_waits_per_pb_frame")})
+        + f"; card {card}")
+    secs = time.perf_counter() - t_phase
+    log(f"[fused-enc] {len(streams['fused'])} bytes on both paths, each "
+        f"decoded back to its reconstruction; {secs:.1f} s in all (host "
+        f"clock; e2e_s: each turn's whole 3-frame encode, "
+        f"the fused turns in the order cold, warm; stages: ms a P frame, "
+        f"each ending in a wait; host waits a P frame by file:line from "
+        f"torch.cuda's sync debug mode; launches and launch calls from "
+        f"torch.profiler over a third encode of each path, its P frames; "
+        f"device_only_fps: the recorded P frames replayed back to back, "
+        f"best of {FPS_REPEATS}); card {card}")
+    return rows, max_err, launches_cold
 
 
 # ---------------------------------------------------------------------------
@@ -1830,7 +2085,7 @@ def phase_encode_host(dev, card, out_dir):
     got = out_dir / "enc_host_ldb_cif_prof.bit"
     prof = OneProfiled(enc_params(dict(fields, num_frames=2)))
     prof.encode_sequence(fr, str(got))
-    _, wall, groups, top, n_launch = prof.profile
+    _, wall, groups, top, n_launch, _ = prof.profile
     busy = sum(groups.values())
     prefix = golden_path("host_ldb_cif").read_bytes().startswith(
         got.read_bytes())
@@ -2312,7 +2567,10 @@ def phase_tools(dev, card, pb_enc, pb_recons, out_dir):
             f"{r['host_waits_per_frame']:.3f} at {r['host_wait_sites']}; "
             f"launches per round {out[key]}; card {card}")
     # the encode replay of phase_encode_pb's records (one counted round,
-    # FPS_REPEATS timed)
+    # FPS_REPEATS timed), after one round that captures the graphs the
+    # fused phase's entries did not hold (a round that captures launches
+    # its programs' warm-ups too)
+    DEF.replay(pb_enc, pb_recons, 1)
     r, out["encode_replay"] = counted(
         "encode replay", lambda: DEF.replay(pb_enc, pb_recons, FPS_REPEATS),
         ("mc_frame",), FPS_REPEATS + 1)
@@ -2437,6 +2695,9 @@ def main():
         return 1
     sys.path.insert(0, str(HERE))
     import thor_tpu_torch  # noqa: F401  (fails outside a repo checkout)
+    global _log_file
+    (HERE / "chiprun_out").mkdir(exist_ok=True)
+    _log_file = open(HERE / "chiprun_out" / "chip_smoke.log", "w")
 
     dev = torch.device("cuda")
     smi_line, card = phase_device()
@@ -2459,6 +2720,12 @@ def main():
         launches_enc = phase_encode(dev, card, Path(tmp))
         launches_pb, pb_enc, pb_recons = phase_encode_pb(dev, card,
                                                          Path(tmp))
+        rows_f, max_err_f, launches_fused = phase_encode_fused(dev, card,
+                                                               Path(tmp))
+        rows.update(rows_f)
+        max_err["rdoq"] = max_err_f["rdoq"]
+        max_err["encode_scan"] = max(max_err["encode_scan"],
+                                     max_err_f["encode_scan"])
         launches_host = phase_encode_host(dev, card, Path(tmp))
         launches_sh_ra, launches_sh_enc = phase_parallel(dev, card, Path(tmp))
         launches_tools = phase_tools(dev, card, pb_enc, pb_recons, Path(tmp))
@@ -2476,26 +2743,33 @@ def main():
         "mot_comp_uv": ("thor_tpu_torch/csrc/interp_mc.cu", f"{pi}:510"),
         "encode_scan": ("thor_tpu_torch/csrc/enc_intra_scan.cu",
                         "thor_tpu/ops/pallas_enc_intra.py:278"),
+        # port-only: thor_tpu runs the zero-run pass as XLA ops
+        "rdoq": ("thor_tpu_torch/csrc/rdoq.cu",
+                 "thor_tpu/ops/jax_kernels.py:1094 (_rdoq_light, XLA ops; "
+                 "no pallas_call)"),
     }
     kernels = []
     for name, (src, repl) in meta.items():
         r = rows[name]             # the launches one frame makes
         b_ms, b_by = bound_ms(sum(x[4][0] for x in r),
                               sum(x[4][1] for x in r))
+        c = "rdoq_light" if name == "rdoq" else name     # its counter
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": (launches if name in ldb else launches_enc
-                         if name == "encode_scan" else launches_ra)[name],
-            "launches_ra16_path": launches_ra[name],
-            "launches_python_parse_ldb": launches_py_ldb[name],
-            "launches_python_parse_ra16": launches_py_ra[name],
-            **({"launches_pb_encode": launches_pb[name]}
-               if name in ("mc_frame", "encode_scan") else {}),
-            "launches_host_encode": launches_host[name],
-            "launches_sharded_ra16": launches_sh_ra[name],
-            "launches_sharded_encode": launches_sh_enc[name],
-            **{f"launches_{k}": v[name] for k, v in launches_tools.items()},
-            **{f"launches_bench_{k}": v[name]
+                         if name == "encode_scan" else launches_fused
+                         if name == "rdoq" else launches_ra)[c],
+            "launches_ra16_path": launches_ra[c],
+            "launches_python_parse_ldb": launches_py_ldb[c],
+            "launches_python_parse_ra16": launches_py_ra[c],
+            **({"launches_pb_encode": launches_pb[c],
+                "launches_fused_encode": launches_fused[c]}
+               if name in ("mc_frame", "encode_scan", "rdoq") else {}),
+            "launches_host_encode": launches_host[c],
+            "launches_sharded_ra16": launches_sh_ra[c],
+            "launches_sharded_encode": launches_sh_enc[c],
+            **{f"launches_{k}": v[c] for k, v in launches_tools.items()},
+            **{f"launches_bench_{k}": v[c]
                for k, v in launches_bench.items()},
             "max_abs_err": max_err[name],
             "ms": sum(x[0] for x in r), "plain_ms": sum(x[1] for x in r),
@@ -2520,7 +2794,11 @@ def main():
         f"ShardedEncoder encode on two streams; launches_decode_replay_ldb "
         f"/ _ra16 and launches_encode_replay: each kernel in one replay "
         f"round of the two 1080p decodes and of the LDB-form encode's P "
-        f"frames; launches_synthetic: per 1080p synthetic frame; "
+        f"frames; launches_synthetic: per 1080p synthetic frame; rdoq: ms "
+        f"/ plain_ms / bound_ms over one variant's luma and U+V launch at "
+        f"each trial size of a 1080p P frame, launches over the cold fused "
+        f"3-frame 1080p LDB-form encode (launches_fused_encode: mc_frame, "
+        f"encode_scan and rdoq there); "
         f"launches_encode_4k: over the 2-frame 4K encode, its decode and "
         f"its replay rounds; launches_bench_<child>: over each child "
         f"process of python -m thor_tpu_torch.bench); {smi_line}")

@@ -232,21 +232,22 @@ def test_cpu_pb_encode_equals_thor_tpu_stream(name, tmp_path, one_thread):
     """P and B frames: the port writes thor_tpu's bytes (LDB with two
     references and the second chance; RA with hierarchical B frames on an
     interpolated reference, tb-split trials and the fast paths), through
-    the kernels' plain versions here; its decoder and thor_tpu's numpy
+    the kernels' plain versions here, on the default fused path
+    (enc/fused.py: measure is one stage); its decoder and thor_tpu's numpy
     decoder read the stream back to the encoder's reconstruction."""
     out = tmp_path / f"{name}.bit"
     recons, enc, launches, calls = _pb_encode(name, out, "cpu")
     assert out.read_bytes() == golden_path(name).read_bytes()
     assert len(recons) == CASES[name][2]["num_frames"]
     assert not any(launches.values())
-    pb = [ft for ft in enc.frame_times if "me" in ft]
+    pb = [ft for ft in enc.frame_times if "measure" in ft]
     assert len(pb) == len(recons) - 1
     assert calls["mc_frame_plain"] == 2 * len(pb)
     assert calls["encode_scan_plain"] == 2 * (1 + sum(
         ft["intra_leaves"] > 0 for ft in pb))
     assert bool(calls["me_level_plain"]) == (name == "ra_qcif")
-    assert {"me", "trials", "intra_search", "decide", "second_chance",
-            "final", "emit", "filters"} <= set(pb[0])
+    assert {"measure", "decide", "second_chance", "final", "emit",
+            "filters"} <= set(pb[0])
     assert _same_frames(decode_file1(str(out), device="cpu"), recons)
     assert _same_frames(decode_file0(str(out), backend="numpy"), recons)
 
@@ -256,17 +257,20 @@ def test_cpu_pb_encode_equals_thor_tpu_stream(name, tmp_path, one_thread):
 def test_cuda_pb_encode_equals_thor_tpu_stream(name, tmp_path):
     """The same on the card: thor_tpu's bytes, through the kernels alone
     (mc_frame on every P/B frame, encode_scan on the I frame, and on the RA
-    case the three synthesis kernels), no plain version called."""
+    case the three synthesis kernels), no plain version called. On the
+    fused path a frame whose final program is captured runs it twice: the
+    warm-up and the replay."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     out = tmp_path / f"{name}.bit"
     recons, enc, launches, calls = _pb_encode(name, out, "cuda")
     assert out.read_bytes() == golden_path(name).read_bytes()
     assert not any(calls.values())
-    pb = [ft for ft in enc.frame_times if "me" in ft]
-    assert launches["mc_frame"] == 2 * sum(ft["pus"] > 0 for ft in pb)
+    pb = [ft for ft in enc.frame_times if "measure" in ft]
+    assert launches["mc_frame"] == 2 * sum(1 + ft["final_captures"]
+                                           for ft in pb)
     assert launches["encode_scan"] == 2 * (1 + sum(
-        ft["intra_leaves"] > 0 for ft in pb))
+        (1 + ft["final_captures"]) * (ft["intra_leaves"] > 0) for ft in pb))
     if name == "ra_qcif":
         assert launches["me_level"] and launches["mot_comp"] \
             and launches["mot_comp_uv"]

@@ -28,7 +28,7 @@ from thor_tpu_torch.dec.decoder import decode_file
 from thor_tpu_torch.dec.inputs import build_frame_inputs
 from thor_tpu_torch.dec.parse import SequenceHeader
 from thor_tpu_torch.native import parse_frame, seqhdr_from_python
-from thor_tpu_torch.ops import intra as IT
+from thor_tpu_torch.ops import graphs as G, intra as IT
 from thor_tpu_torch.ops import mc as M
 from thor_tpu_torch.ops.kernels import build_chroma_mc_lut, build_luma_mc_lut
 
@@ -195,7 +195,7 @@ class _Stub:
 
 
 def test_cache_keys_and_bound():
-    cache = F.FrameCache(maxsize=3)
+    cache = G.FrameCache(maxsize=3)
     made = []
 
     def make(k):
@@ -207,19 +207,19 @@ def test_cache_keys_and_bound():
         e, fresh = cache.get(k, lambda: make(k))
         assert fresh == (made[-1] == k and made.count(k) == 1)
     assert made == [(cpu, "a"), (cpu, "b"), (other, "a")]
-    ev = F.STATS["evictions"]
+    ev = G.STATS["evictions"]
     cache.get((cpu, "c"), lambda: make((cpu, "c")))       # evicts (cpu, b)
-    assert F.STATS["evictions"] == ev + 1
+    assert G.STATS["evictions"] == ev + 1
     assert list(cache.entries) == [(other, "a"), (cpu, "a"), (cpu, "c")]
     _, fresh = cache.get((cpu, "b"), lambda: make((cpu, "b")))
     assert fresh and len(cache.entries) == 3
-    assert F.MAXSIZE == 256 and F.CACHE.maxsize == 256
+    assert G.MAXSIZE == 256 and G.CACHE.maxsize == 256
 
 
 def test_cache_forgets_pools_without_graphs():
     """A graph pool dies with its last graph: the cache keeps a device's
     pool handle only while one of its entries holds a graph."""
-    cache = F.FrameCache(maxsize=2)
+    cache = G.FrameCache(maxsize=2)
     a, b = torch.device("meta", 0), torch.device("meta", 1)
     live = _Stub()
     live.graph = object()
@@ -233,6 +233,25 @@ def test_cache_forgets_pools_without_graphs():
     assert cache.pools == {}
 
 
+def test_cache_drops_one_kind():
+    """drop(kind) takes out the entries of that class only, and the pool
+    of a device left with no graph."""
+    class Other(_Stub):
+        pass
+
+    cache = G.FrameCache(maxsize=4)
+    a = torch.device("meta", 0)
+    keep = _Stub()
+    cache.pools = {a: (0, 1)}
+    cache.get((a, "x"), lambda: keep)
+    cache.get((a, "y"), Other)
+    cache.get((a, "z"), Other)
+    cache.drop(Other)
+    assert list(cache.entries) == [(a, "x")] and cache.pools == {}
+    cache.drop()
+    assert not cache.entries
+
+
 def test_capture_counts_are_taken_back():
     """A stub capture that 'launches' both kernels: its counts are
     returned and the wrappers' counters are as before."""
@@ -243,8 +262,8 @@ def test_capture_counts_are_taken_back():
         IT.intra_scan.launches += 3
         return "out"
 
-    out, added = F.counted_capture(run)
-    assert out == "out" and added == [2, 3]
+    out, added = G.counted_capture(run)
+    assert out == "out" and added == [2, 3, 0, 0]
     assert (M.mc_frame.launches, IT.intra_scan.launches) == n0
 
 
@@ -258,12 +277,12 @@ def test_cpu_decode_fills_the_cache_once_per_signature():
         cfg, inp, _ = build_frame_inputs(nf, seq, nums)
         sigs.add(F.pack_frame(cfg, F.bucket_inputs(cfg, inp),
                               seq.bipred).sig)
-    F.CACHE.clear()
+    G.CACHE.clear()
     decode_file(path, device="cpu")
-    keys = set(F.CACHE.entries)
+    keys = set(G.CACHE.entries)
     assert keys == {(torch.device("cpu"), s) for s in sigs}
     decode_file(path, device="cpu")
-    assert set(F.CACHE.entries) == keys
+    assert set(G.CACHE.entries) == keys
 
 
 @pytest.mark.gpu
@@ -271,9 +290,9 @@ def test_cuda_fused_decode_matches_golden():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     path = str(TESTDATA / "LDB_medium_complexity.bit")
-    r0 = F.STATS["replays"]
+    r0 = G.STATS["replays"]
     frames = decode_file(path, fused=True)
-    assert F.STATS["replays"] - r0 == len(frames)
+    assert G.STATS["replays"] - r0 == len(frames)
     golden = np.fromfile(TESTDATA / "LDB_medium_complexity_dec.yuv",
                          np.uint8)
     assert np.array_equal(_concat(frames), golden)

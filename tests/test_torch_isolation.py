@@ -40,10 +40,11 @@ def test_port_imports_no_jax_and_no_thor_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     out = r.stdout.split()
-    assert int(out[0]) >= 62       # the enc package, host mirror, the
+    assert int(out[0]) >= 63       # the enc package, host mirror, the
     #                                 numpy decode backend, the parallel
     #                                 paths, the measuring tools, the
-    #                                 bench and the fused frame program
+    #                                 bench, the fused frame program and
+    #                                 the encoder's fused programs
     #                                 included
     assert {"thor_tpu_torch.enc.host", "thor_tpu_torch.enc.inter",
             "thor_tpu_torch.enc.quant", "thor_tpu_torch.ops.np_kernels",
@@ -62,7 +63,8 @@ def test_port_imports_no_jax_and_no_thor_tpu():
             "thor_tpu_torch.utils.encode_scaling",
             "thor_tpu_torch.utils.encode_4k",
             "thor_tpu_torch.utils.link_profile",
-            "thor_tpu_torch.bench", "thor_tpu_torch.dec.fused"} <= set(out)
+            "thor_tpu_torch.bench", "thor_tpu_torch.dec.fused",
+            "thor_tpu_torch.enc.fused"} <= set(out)
 
 
 def test_entry_points_raise_without_a_card(tmp_path):

@@ -98,8 +98,10 @@ def test_encode_replay_equals_live(name, tmp_path):
     assert ("r", 0) in ups and len(ups) == len(set(ups))
     assert sum(k[0] == "i" for k in ups) == (3 if name == "ra_qcif" else 0)
     assert set(refstate) == set(ups) | {("r", r["frame_num"]) for r in recs}
-    # ldb_qcif's P frames take the second chance (encoder_speed 0)
-    assert all(r["extra"] for r in recs) == (name == "ldb_qcif")
+    # ldb_qcif's P frames take the second chance (encoder_speed 0): their
+    # records carry the extra program's packed variants
+    assert all(r["fused"]["extra"] is not None for r in recs) == (
+        name == "ldb_qcif")
 
 
 def test_records_share_no_tensor(tmp_path):

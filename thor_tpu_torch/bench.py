@@ -82,6 +82,7 @@ from .ops import _build
 from .ops import enc_intra as EI
 from .ops import interp as TI
 from .ops import intra as IT
+from .ops import kernels as K
 from .ops import mc as MC
 from .utils import device_decode_fps, device_encode_fps
 from .utils.link_profile import measure_link
@@ -105,7 +106,8 @@ KERNELS = ((MC.mc_frame, MC.mc_frame_plain),
            (TI.me_level, TI.me_level_plain),
            (TI.mot_comp, TI.mot_comp_plain),
            (TI.mot_comp_uv, TI.mot_comp_uv_plain),
-           (EI.encode_scan, EI.encode_scan_plain))
+           (EI.encode_scan, EI.encode_scan_plain),
+           (K.rdoq_light, K._rdoq_light))
 
 
 # ---------------------------------------------------------------------------

@@ -88,27 +88,32 @@ class DeblockData:
         mv_arr0/mv_arr1: 4 (x, y) pairs indexed by PB quadrant.
         """
         by, bx = ypos // MIN_PB_SIZE, xpos // MIN_PB_SIZE
+        hh, ww = bheight // MIN_PB_SIZE, bwidth // MIN_PB_SIZE
         div = size // (2 * MIN_PB_SIZE)
-        for m in range(bheight // MIN_PB_SIZE):
-            for n in range(bwidth // MIN_PB_SIZE):
-                m0 = m // div if div > 0 else 0
-                n0 = n // div if div > 0 else 0
-                index = 2 * m0 + n0
-                r, c = by + m, bx + n
-                self.cbp_y[r, c] = cbp[0]
-                self.cbp_u[r, c] = cbp[1]
-                self.cbp_v[r, c] = cbp[2]
-                self.tb_split[r, c] = 1 if tb_split > 0 else 0
-                self.pb_part[r, c] = pb_part
-                self.size[r, c] = size
-                self.mode[r, c] = mode
-                self.mv0x[r, c] = mv_arr0[index][0]
-                self.mv0y[r, c] = mv_arr0[index][1]
-                self.ref_idx0[r, c] = ref_idx0
-                self.mv1x[r, c] = mv_arr1[index][0]
-                self.mv1y[r, c] = mv_arr1[index][1]
-                self.ref_idx1[r, c] = ref_idx1
-                self.bipred_flag[r, c] = dir_flag
+        block = (slice(by, by + hh), slice(bx, bx + ww))
+        for a, v in ((self.cbp_y, cbp[0]), (self.cbp_u, cbp[1]),
+                     (self.cbp_v, cbp[2]),
+                     (self.tb_split, 1 if tb_split > 0 else 0),
+                     (self.pb_part, pb_part), (self.size, size),
+                     (self.mode, mode), (self.ref_idx0, ref_idx0),
+                     (self.ref_idx1, ref_idx1), (self.bipred_flag, dir_flag)):
+            a[block] = v
+        # cell (m, n) takes the MVs of PB quadrant 2 (m // div) + n // div
+        # (quadrant 0 everywhere when div is 0); the block's cells are at
+        # most 2 div a side, so m // div and n // div are 0 or 1
+        step = div if div > 0 else max(hh, ww, 1)
+        for qi in range(2):
+            for qj in range(2):
+                m0, n0 = qi * step, qj * step
+                if m0 >= hh or n0 >= ww:
+                    continue
+                cells = (slice(by + m0, by + min(m0 + step, hh)),
+                         slice(bx + n0, bx + min(n0 + step, ww)))
+                index = 2 * qi + qj
+                self.mv0x[cells] = mv_arr0[index][0]
+                self.mv0y[cells] = mv_arr0[index][1]
+                self.mv1x[cells] = mv_arr1[index][0]
+                self.mv1y[cells] = mv_arr1[index][1]
 
 
 # --- Availability (common/common_block.c:100-129) ---

@@ -286,6 +286,7 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM)
 enc_intra_scan_kernel(const int* __restrict__ in, int* out,
                 const int* __restrict__ org, int C, int H, int W,
                 const int* __restrict__ recs, int nrec,
+                const int* __restrict__ count,
                 const int* __restrict__ owner, int* ticket,
                 short* __restrict__ q16, int scale, int qp6, int fac,
                 int dq73, int fast, int intra) {
@@ -308,6 +309,7 @@ enc_intra_scan_kernel(const int* __restrict__ in, int* out,
   __syncthreads();
 
   const size_t HW = static_cast<size_t>(H) * W;
+  if (count != nullptr) nrec = min(nrec, __ldg(count));
   const int units = nrec * C;
   const int off_last_b = intra ? 38 : -26;
   const int off0_b = intra ? 102 : 51, off1_b = intra ? 115 : 90;
@@ -581,25 +583,34 @@ int allow_smem() {
 // planes/org: [C, H, W] int32, read only; out: [C, H, W] int32, a copy of
 // planes that the scan updates in place; recs: [nrec, 7] int32 TU records
 // in coding order, every TU inside the plane, ty, tx and size multiples of
-// 4, no two TUs overlapping; scratch: int32, uninitialised, 1 + ceil(H/4)
-// ceil(W/4) elements (ops/enc_intra.py: scan_scratch); q16: [nrec, C, 16,
-// 16] int16, written whole. scale = gquant[qp % 6], qp6 = qp / 6, fac =
-// gdequant[qp % 6] << qp6, dq73 = 73 * gdequant[qp % 6]. Launches its three
-// kernels on `stream`; returns cudaGetLastError().
-extern "C" int thor_enc_intra_scan(const void* planes, void* out,
-                                   const void* org, int C, int H, int W,
-                                   const void* recs, int nrec, void* scratch,
-                                   void* q16, int scale, int qp6, int fac,
-                                   int dq73, int fast, int intra,
-                                   void* stream) {
+// 4, no two TUs overlapping; count: null (all nrec records are real), or
+// one int32 on the device, the number of real records at the head of recs
+// (a frame's records padded to a bucket: the grid and the scratch follow
+// nrec, the work follows *count, so a CUDA graph captured for the bucket
+// serves every count in it; the padded records never run and their rows
+// of q16 are left as they were); scratch: int32, uninitialised, 1 +
+// ceil(H/4) ceil(W/4) elements (ops/enc_intra.py: scan_scratch); q16:
+// [nrec, C, 16, 16] int16, written for every real record. scale =
+// gquant[qp % 6], qp6 = qp / 6, fac = gdequant[qp % 6] << qp6, dq73 = 73 *
+// gdequant[qp % 6]. Launches its three kernels on `stream`; returns
+// cudaGetLastError().
+extern "C" int thor_enc_intra_scan_count(const void* planes, void* out,
+                                         const void* org, int C, int H,
+                                         int W, const void* recs, int nrec,
+                                         const void* count, void* scratch,
+                                         void* q16, int scale, int qp6,
+                                         int fac, int dq73, int fast,
+                                         int intra, void* stream) {
   if (nrec <= 0) return 0;
   int err = allow_smem();
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* cnt = static_cast<const int*>(count);
   int* ticket = static_cast<int*>(scratch);
   int* owner = ticket + 1;
   const int* rc = static_cast<const int*>(recs);
-  scan_prologue(rc, nrec, ticket, owner, static_cast<int*>(out), C, H, W, s);
+  scan_prologue(rc, nrec, ticket, owner, static_cast<int*>(out), C, H, W, s,
+                cnt);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   const int resident = sm_count() * BLOCKS_PER_SM;
@@ -607,9 +618,22 @@ extern "C" int thor_enc_intra_scan(const void* planes, void* out,
   const int grid = wanted < resident ? wanted : resident;
   enc_intra_scan_kernel<<<grid, NT, SMEM, s>>>(
       static_cast<const int*>(planes), static_cast<int*>(out),
-      static_cast<const int*>(org), C, H, W, rc, nrec, owner, ticket,
+      static_cast<const int*>(org), C, H, W, rc, nrec, cnt, owner, ticket,
       static_cast<short*>(q16), scale, qp6, fac, dq73, fast, intra);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same with every record real (the entry point of the builds before
+// the count; tools/ab_kernel.py calls it on either build).
+extern "C" int thor_enc_intra_scan(const void* planes, void* out,
+                                   const void* org, int C, int H, int W,
+                                   const void* recs, int nrec, void* scratch,
+                                   void* q16, int scale, int qp6, int fac,
+                                   int dq73, int fast, int intra,
+                                   void* stream) {
+  return thor_enc_intra_scan_count(planes, out, org, C, H, W, recs, nrec,
+                                   nullptr, scratch, q16, scale, qp6, fac,
+                                   dq73, fast, intra, stream);
 }
 
 extern "C" const char* thor_cuda_error_string(int err) {

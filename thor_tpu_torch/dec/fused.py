@@ -36,45 +36,36 @@ CUDA graph:
 The entries, their buffers and the reference stacks are shared by
 every decoder of the process: one thread dispatches frames to a device at
 a time (the Decoder's main thread). The sharded decoder, whose slots
-dispatch on several streams at once, stays on the eager path.
+dispatch on several streams at once, stays on the eager path. The graph
+machinery (capture, replay, the cache and its pools, the launch counts)
+lives in ops/graphs.py, which the device encoder's P/B programs
+(enc/fused.py) share.
 
 On the CPU there is no graph: the same entry runs the frame program on
 its buffers through the kernels' plain versions. A capture that fails
 raises; nothing falls back to the eager path (dec/reconstruct
 .reconstruct_frame, which Decoder(fused=False) runs).
-
-Kernels 1 and 2 count their launches where their wrappers launch them.
-Under a capture they launch nothing, so an entry keeps the counts its
-capture added, takes them back, and adds them at every replay. STATS
-counts the captures (and their host milliseconds, warm-up included),
-the replays and the entries evicted.
 """
 
 from __future__ import annotations
 
-import time
-from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..codec.constants import PAD_C, PAD_Y
-from ..ops.intra import intra_scan
-from ..ops.mc import mc_frame
+from ..ops.graphs import CACHE, GraphProgram, device as _device
 from .inputs import FrameConfig
 from .reconstruct import mc_luts, reconstruct_frame
 
 TU_MIN = 16         # _pow2pad's first bucket
 COEF_MIN = 64       # _sparse_group's first bucket
-MAXSIZE = 256       # _jit_fused's lru_cache bound
 ALIGN = 16          # byte alignment of each array in a packed frame
-COUNTED = (mc_frame, intra_scan)    # the kernels the frame program runs
 INTRA_PAD = (0, 0, 4, 0, 4, 4, 0)   # pad_tu's filler TU (never run)
 
-STATS = {"captures": 0, "capture_ms": 0.0, "replays": 0, "evictions": 0}
-
-_TORCH = {"|u1": torch.uint8, "|b1": torch.bool, "<i4": torch.int32}
+_TORCH = {"|u1": torch.uint8, "|b1": torch.bool, "<i2": torch.int16,
+          "<i4": torch.int32, "<f4": torch.float32}
 
 
 def pow4_bucket(n: int) -> int:
@@ -168,17 +159,26 @@ class PackedFrame(NamedTuple):
         return PackedFrame(self.sig, self.buf.to(device))
 
 
-def pack_frame(cfg, binp, bipred: int, pin: bool = False) -> PackedFrame:
-    """The bucketed inputs `binp` in one uint8 buffer (pinned with
-    `pin`, for a copy to a card that the host does not wait for)."""
+def pack_fields(binp, pin: bool = False):
+    """The numpy arrays of `binp` (a dict, nested one level at most) in
+    one uint8 buffer, pinned with `pin` (for a copy to a card that the
+    host does not wait for): (layout, buffer), the layout being the
+    arrays' (path, dtype, shape) in the buffer's order."""
     fields = _fields(binp)
     layout = tuple((path, a.dtype.str, a.shape) for path, a in fields)
     offs, total = _offsets(layout)
     buf = torch.empty(total, dtype=torch.uint8, pin_memory=pin)
     raw = buf.numpy()
     for (_, a), off in zip(fields, offs):
-        b = a.reshape(-1).view(np.uint8)
+        b = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
         raw[off:off + b.size] = b
+    return layout, buf
+
+
+def pack_frame(cfg, binp, bipred: int, pin: bool = False) -> PackedFrame:
+    """The bucketed inputs `binp` in one uint8 buffer (pinned with
+    `pin`, for a copy to a card that the host does not wait for)."""
+    layout, buf = pack_fields(binp, pin)
     return PackedFrame(Signature(cfg, int(bipred), layout), buf)
 
 
@@ -198,32 +198,21 @@ def unpack(buf, layout):
     return out
 
 
-def counted_capture(run):
-    """run() with the counted kernels' launch counts restored after it:
-    (run's result, the counts it added)."""
-    before = [f.launches for f in COUNTED]
-    try:
-        out = run()
-    finally:
-        added = [f.launches - b for f, b in zip(COUNTED, before)]
-        for f, b in zip(COUNTED, before):
-            f.launches = b
-    return out, added
-
-
-class _Entry:
+class _Entry(GraphProgram):
     """One frame signature's input buffers, reference stacks and, on a
     card, its graph with the graph's output planes."""
 
     def __init__(self, sig: Signature, dev):
+        super().__init__()
         self.cfg = sig.cfg
         self.luts = mc_luts(sig.bipred, dev)
         _, total = _offsets(sig.layout)
         self.flat = torch.empty(total, dtype=torch.uint8, device=dev)
         self.inp = unpack(self.flat, sig.layout)
         self.stacks = _stacks(dev, self.cfg) if self.cfg.R else None
-        self.graph = self.out = None
-        self.launches = [0] * len(COUNTED)
+
+    def input_bytes(self) -> int:
+        return self.flat.numel()
 
     def program(self):
         """The frame program on the entry's buffers: (planes, padded)."""
@@ -243,111 +232,16 @@ class _Entry:
     def capture(self, dev, pool):
         """Warm up on a side stream, then capture the frame program into
         the device's shared graph pool `pool`."""
-        t0 = time.perf_counter()
-        cur = torch.cuda.current_stream(dev)
-        side = _side_stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self.program()
-        graph = torch.cuda.CUDAGraph()
-
-        def capture():
-            with torch.cuda.stream(side):
-                graph.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    out = self.program()
-                except BaseException:
-                    try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass
-                    raise
-                graph.capture_end()
-            return out
-
-        self.out, self.launches = counted_capture(capture)
-        cur.wait_stream(side)
-        self.graph = graph
-        STATS["captures"] += 1
-        STATS["capture_ms"] += (time.perf_counter() - t0) * 1e3
+        self.capture_program(dev, pool, self.program)
 
     def replay(self):
         """Replay the graph on the current stream; clones of its outputs."""
-        self.graph.replay()
-        for f, n in zip(COUNTED, self.launches):
-            f.launches += n
-        STATS["replays"] += 1
-        planes, padded = self.out
+        planes, padded = self.replay_graph()
         return (tuple(p.clone() for p in planes),
                 tuple(p.clone() for p in padded))
 
 
-class FrameCache:
-    """Entries by (device, signature), least recently used evicted past
-    `maxsize`. An evicted graph may still be queued: the device's current
-    stream is drained before it goes (at most once per new signature
-    beyond the bound)."""
-
-    def __init__(self, maxsize: int = MAXSIZE):
-        self.maxsize = maxsize
-        self.entries: OrderedDict = OrderedDict()
-        self.pools: dict = {}       # device -> the graph pool's handle
-
-    def pool(self, dev):
-        """The graph pool the entries of `dev` share."""
-        if dev not in self.pools:
-            with torch.cuda.device(dev):
-                self.pools[dev] = torch.cuda.graph_pool_handle()
-        return self.pools[dev]
-
-    def get(self, key, make):
-        """(entry, True if it was made now)."""
-        e = self.entries.get(key)
-        if e is not None:
-            self.entries.move_to_end(key)
-            return e, False
-        e = make()
-        self.entries[key] = e
-        if len(self.entries) > self.maxsize:
-            while len(self.entries) > self.maxsize:
-                (dev, _), old = self.entries.popitem(last=False)
-                if old.graph is not None:
-                    torch.cuda.current_stream(dev).synchronize()
-                STATS["evictions"] += 1
-            self.forget_idle_pools()
-        return e, True
-
-    def clear(self):
-        """Drop every entry, once the cards that may still run one of
-        their graphs have drained."""
-        for dev in self._graph_devices():
-            torch.cuda.synchronize(dev)
-        self.entries.clear()
-        self.forget_idle_pools()
-
-    def _graph_devices(self):
-        return {d for (d, _), e in self.entries.items()
-                if e.graph is not None}
-
-    def forget_idle_pools(self):
-        """A pool lives while a graph captured into it does: the handle of
-        a device with no graph left is stale, and the next capture there
-        takes a new one."""
-        live = self._graph_devices()
-        for dev in [d for d in self.pools if d not in live]:
-            del self.pools[dev]
-
-
-CACHE = FrameCache()
-_side: dict = {}
 _ref_stacks: dict = {}
-
-
-def _side_stream(dev):
-    if dev not in _side:
-        _side[dev] = torch.cuda.Stream(device=dev)
-    return _side[dev]
 
 
 def _stacks(dev, cfg):
@@ -365,19 +259,12 @@ def _stacks(dev, cfg):
     return _ref_stacks[key]
 
 
-def _device(dev) -> torch.device:
-    """`dev` with its index (the cache's keys name the card)."""
-    dev = torch.device(dev)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def footprint(dev) -> dict:
-    """Device bytes the frame graphs hold on `dev`: the shared pool's
+    """Device bytes the graphs hold on `dev` (the decoder's and the
+    encoder's: they share the cache and its pools): the shared pool's
     segments (torch.cuda.memory_snapshot; the graphs' intermediates and
     outputs, which max_memory_allocated does not see between replays),
-    the entries' input buffers and the reference stacks."""
+    the entries' input buffers and the decoder's reference stacks."""
     dev = _device(dev)
     pid = CACHE.pools.get(dev)
     pool = 0 if pid is None else sum(
@@ -386,7 +273,7 @@ def footprint(dev) -> dict:
         and tuple(seg["segment_pool_id"]) == tuple(pid))
     mine = [e for (d, _), e in CACHE.entries.items() if d == dev]
     return {"entries": len(mine), "pool_bytes": pool,
-            "input_bytes": sum(e.flat.numel() for e in mine),
+            "input_bytes": sum(e.input_bytes() for e in mine),
             "stack_bytes": sum(t.numel() for (d, *_), ts in
                                _ref_stacks.items() if d == dev for t in ts)}
 
@@ -406,7 +293,6 @@ def run_frame(dev, pf: PackedFrame, refs):
             e.capture(dev, CACHE.pool(dev))
     except BaseException:
         if fresh:
-            CACHE.entries.pop((dev, pf.sig), None)
-            CACHE.forget_idle_pools()
+            CACHE.discard((dev, pf.sig))
         raise
     return e.replay()

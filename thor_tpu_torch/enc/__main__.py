@@ -1,9 +1,9 @@
 """Thorenc-equivalent CLI (enc/mainenc.c:73-660, enc/strings.c).
 
-Usage mirrors the reference, plus --device:
+Usage mirrors the reference, plus --device and --eager:
     python -m thor_tpu_torch.enc -if in.yuv -of out.bit \
         [-cf config.txt] [-rf rec.yuv] [-device_encode 0|1] \
-        [-width W -height H -n N -qp QP ...] [--device cpu|cuda]
+        [-width W -height H -n N -qp QP ...] [--device cpu|cuda] [--eager]
 
 -device_encode 0 (the default, as in python -m thor_tpu.enc) runs the host
 mirror of the reference RD search: the block search in numpy on the host,
@@ -16,7 +16,10 @@ that are multiples of 8 and hold a 64x64 superblock.
 
 Flag precedence: defaults -> config file(s) -> command line
 (enc/strings.c:340-356). Encodes on the card by default; --device cpu
-runs the kernels' plain PyTorch versions on the CPU.
+runs the kernels' plain PyTorch versions on the CPU. The device encoder's
+P and B frames run as the programs of enc/fused.py (one CUDA graph each
+per signature on a card); --eager runs their stages one by one
+(Encoder(fused=False)).
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ def parse_args(argv):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    eager = "--eager" in argv
+    argv = [a for a in argv if a != "--eager"]
     try:
         params, files, device = parse_args(argv)
     except ValueError as e:
@@ -74,7 +79,7 @@ def main(argv=None):
         frames = list(read_yuv_frames(files["if"], params.width,
                                       params.height))
 
-    enc = Encoder(params, device=device)
+    enc = Encoder(params, device=device, fused=not eager)
     t0 = time.time()
     recons = enc.encode_sequence(frames, files["of"])
     dt = time.time() - t0

@@ -1,8 +1,11 @@
 """Batched inter-frame (P and B) encoder of the device encoder.
 
-Counterpart of thor_tpu/enc/device_inter.py, on the route thor_tpu takes
-off the TPU (its per-stage dispatch; the fused single-program dispatch
-saves TPU link round trips and is not ported). Per frame:
+Counterpart of thor_tpu/enc/device_inter.py. Its device work runs either
+stage by stage (this module, Encoder(fused=False), thor_tpu's per-stage
+dispatch) or as the three programs of enc/fused.py, one CUDA graph each
+per signature (Encoder(fused=True), the default: thor_tpu's fused
+dispatch, where the final program also runs the in-loop filters). Per
+frame:
 
  1. measure (device): ME (enc/device_me), then per block size the motion
     variants (the ME MV, the left and up-right neighbours' MVs, zero MV per
@@ -48,6 +51,7 @@ from ..ops.banded_mc import M_CHROMA, M_LUMA, mc_pred_banded
 from ..ops.coeff_bits import coeff_bits_batch
 from ..ops.enc_intra import encode_scan
 from ..ops.mc import build_mc_records, mc_frame
+from . import fused as FU
 from .device_intra import (intra_split_decisions, scan_records,
                            search_intra_frame_dev, search_intra_frame_maps)
 from .device_me import me_frame
@@ -175,7 +179,7 @@ def _plane_trial_tb(ob, pred, b, qp, zz, fast, chroma):
     cq = cq.reshape(-1, 4)
     ssd = torch.where(cq, ssd_c.reshape(-1, 4), ssd_p.reshape(-1, 4)).sum(1)
     bits = torch.where(cq, bq.reshape(-1, 4), 0).sum(1)
-    w = torch.tensor([8, 4, 2, 1], dtype=I32, device=ob.device)
+    w = K.const(np.array([8, 4, 2, 1], np.int32), ob.device)
     mask = (cq.to(I32) * w).sum(1, dtype=I32)
     return _unquads(q, b2), mask, ssd, bits
 
@@ -253,13 +257,17 @@ def trial_coding(org, refs, var, s, qpY, qpC, sign, sign_bi, *, fastY,
     return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
 
 
-def _trial_flags(p, s):
-    """(fastY, fastC, tb, fastY2) of size s under EncoderParams p."""
-    fast32, fast64 = p.encoder_speed > 1, p.encoder_speed > 0
+def trial_flags(speed, tb_split, s):
+    """(fastY, fastC, tb, fastY2) of size s at encoder_speed `speed` and
+    enable_tb_split `tb_split`."""
+    fast32, fast64 = speed > 1, speed > 0
     return dict(fastY=(s == 64 and fast64) or fast32, fastC=fast32,
-                tb=p.enable_tb_split == 1 and s > 8,
-                fastY2=s == 64 or fast32)
+                tb=tb_split == 1 and s > 8, fastY2=s == 64 or fast32)
 
+
+def _trial_flags(p, s):
+    """trial_flags under EncoderParams p."""
+    return trial_flags(p.encoder_speed, p.enable_tb_split, s)
 
 # ---------------------------------------------------------------------------
 # Host decision walk (the C copy) and its glue
@@ -465,7 +473,7 @@ def _chosen_levels(t, c, tb, ks, idx, b):
         return torch.where(t[f"cbp_{c}"][ks, idx][:, None, None], q, 0)
     b2 = b // 2
     q = _quads(t[f"q{c}_tb"][ks, idx].to(I32), b2)
-    bit = torch.tensor([3, 2, 1, 0], dtype=I32, device=ks.device)
+    bit = K.const(np.array([3, 2, 1, 0], np.int32), ks.device)
     cb = (((t[f"cbp_tb_{c}"][ks, idx][:, None] >> bit) & 1) != 0).reshape(-1)
     return torch.where(cb[:, None, None], q, 0)
 
@@ -489,14 +497,11 @@ def _add_residual(plane, q, b, qp, ys, xs):
     return K.scatter_tu(plane, vals, ys, xs)
 
 
-def final_plan(leaves, sign, sign_bi, H, W, dev):
-    """What the final reconstruction reads of the decided leaves, on `dev`:
-    {"mc_y", "mc_c": the MC records of the inter leaves (ops/mc), "npu":
-    their PU count, "groups": per (size, tb) of the coded inter leaves
-    (s, tb, variants ks, blocks idx, luma (ys, xs), chroma (ys, xs)),
-    "intra": the scan records (luma, chroma) of the intra leaves or None}.
-    sign, sign_bi: numpy [R]. The host work of the final step; a replay
-    runs final_frame on a recorded plan."""
+def mc_records(leaves, sign, sign_bi, H, W):
+    """The MC records (ops/mc) of the inter leaves: (luma, chroma) numpy
+    record arrays and the PU count. sign, sign_bi: numpy [R]. Raises when
+    a window would leave the range where the decoder's MC and thor_tpu's
+    banded MC agree."""
     pus, clamped = inter_pus(leaves, sign, sign_bi)
     recs_y, ny = build_mc_records(pus, H, W, PAD_Y, 2, -2, 6)
     pus_c = dict(pus)
@@ -509,6 +514,18 @@ def final_plan(leaves, sign, sign_bi, H, W, dev):
         raise RuntimeError(
             f"final MC: {clamped} windows past thor_tpu's clamp and "
             f"{ny + nc} past the padded planes")
+    return recs_y, recs_c, len(pus["y0"])
+
+
+def final_plan(leaves, sign, sign_bi, H, W, dev):
+    """What the final reconstruction reads of the decided leaves, on `dev`:
+    {"mc_y", "mc_c": the MC records of the inter leaves (ops/mc), "npu":
+    their PU count, "groups": per (size, tb) of the coded inter leaves
+    (s, tb, variants ks, blocks idx, luma (ys, xs), chroma (ys, xs)),
+    "intra": the scan records (luma, chroma) of the intra leaves or None}.
+    sign, sign_bi: numpy [R]. The host work of the final step; a replay
+    runs final_frame on a recorded plan."""
+    recs_y, recs_c, npu = mc_records(leaves, sign, sign_bi, H, W)
 
     def dev_t(a, dtype=torch.long):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -541,7 +558,7 @@ def final_plan(leaves, sign, sign_bi, H, W, dev):
             [(lf.ypos, lf.xpos, lf.size, lf.intra_mode) for lf in intra],
             W, H))
     return {"mc_y": dev_t(recs_y, I32), "mc_c": dev_t(recs_c, I32),
-            "npu": len(pus["y0"]), "groups": groups, "intra": scan}
+            "npu": npu, "groups": groups, "intra": scan}
 
 
 def final_frame(refs, org, trials, plan, qpY, qpC, luts, fast, H, W):
@@ -697,8 +714,10 @@ def measure_inter_frame_device(enc, org_y, org_u, org_v):
     """First half of a P/B frame: ME, motion variants, the trials of every
     size and the intra search, on the encoder's device. org_*: int32
     planes there. Returns the context finish_inter_frame_device drains.
-    Records the host-clock seconds of "me", "trials" and "intra_search" in
-    enc.frame_times[-1]; each ends with a wait for the device. On an
+    On the fused path (enc.fused) they are one program (enc/fused.py) and
+    enc.frame_times[-1] gets "measure", its host-clock seconds up to the
+    fetch of the cost maps; stage by stage it gets "me", "trials" and
+    "intra_search", each ended by a wait for the device. On an
     Encoder(record=True) the context carries the frame's record (see
     replay_device_frame)."""
     W, H = enc.width, enc.height
@@ -725,27 +744,32 @@ def measure_inter_frame_device(enc, org_y, org_u, org_v):
     bslot0, bslot1 = (1, 2) if has_bi and enc.frame_type == 2 \
         and enc.interp_ref else (0, 1)
     K_uni = 3 + R
-    refs_d = tuple(torch.stack([getattr(r, c) for r in refs])
-                   for c in ("y", "u", "v"))
-    sign_d = torch.from_numpy(sign).to(dev)
-    sign_bi_d = torch.from_numpy(sign_bi).to(dev)
-    lam_me_d = torch.tensor(lam_me, dtype=torch.float32, device=dev)
-    luts_np = (K.build_luma_mc_lut(int(p.enable_bipred)),
-               K.build_chroma_mc_lut())
     org = (org_y, org_u, org_v)
-
-    variants, trials = _measure(org, refs_d, R, K_uni, has_bi, bslot0,
-                                bslot1, sign_d, sign_bi_d, lam_me_d, qpY, qpC,
-                                p, luts_np, times)
-    t2 = time.perf_counter()
-    intra = search_intra_frame_maps(org_y, org_u, org_v, qpY, qpC, lam, W,
-                                    H, p.encoder_speed > 1,
-                                    enc.num_intra_modes, intra_quant=False)
-    times["intra_search"] = time.perf_counter() - t2
-    ctx = dict(org=org, refs=refs_d, variants=variants, trials=trials,
-               intra=intra, sign=sign_d, sign_bi=sign_bi_d, sign_np=sign,
-               sign_bi_np=sign_bi, qpY=qpY, qpC=qpC, lam=lam, lam_me=lam_me,
-               K_uni=K_uni, luts_np=luts_np)
+    if enc.fused:
+        ctx = FU.measure_frame(enc, org, refs, sign, sign_bi, has_bi, bslot0,
+                               bslot1, qpY, qpC, lam, lam_me)
+    else:
+        refs_d = tuple(torch.stack([getattr(r, c) for r in refs])
+                       for c in ("y", "u", "v"))
+        sign_d = torch.from_numpy(sign).to(dev)
+        sign_bi_d = torch.from_numpy(sign_bi).to(dev)
+        lam_me_d = torch.tensor(lam_me, dtype=torch.float32, device=dev)
+        luts_np = (K.build_luma_mc_lut(int(p.enable_bipred)),
+                   K.build_chroma_mc_lut())
+        variants, trials = _measure(org, refs_d, R, K_uni, has_bi, bslot0,
+                                    bslot1, sign_d, sign_bi_d, lam_me_d, qpY,
+                                    qpC, p, luts_np, times)
+        t2 = time.perf_counter()
+        intra = search_intra_frame_maps(org_y, org_u, org_v, qpY, qpC, lam,
+                                        W, H, p.encoder_speed > 1,
+                                        enc.num_intra_modes,
+                                        intra_quant=False)
+        times["intra_search"] = time.perf_counter() - t2
+        ctx = dict(fused=False, org=org, refs=refs_d, variants=variants,
+                   trials=trials, intra=intra, sign=sign_d,
+                   sign_bi=sign_bi_d, sign_np=sign, sign_bi_np=sign_bi,
+                   qpY=qpY, qpC=qpC, lam=lam, lam_me=lam_me, K_uni=K_uni,
+                   luts_np=luts_np)
     if enc.device_record is not None:
         keys = [_ref_key(enc, i, r) for i, r in enumerate(refs)]
         # the references no recorded frame makes (the I frame, the
@@ -755,24 +779,60 @@ def measure_inter_frame_device(enc, org_y, org_u, org_v):
             if k not in enc.record_keys:
                 enc.record_keys.add(k)
                 uploads[k] = tuple(getattr(r, c).clone() for c in "yuv")
-        ctx["rec"] = dict(
-            frame_num=enc.frame_num, H=H, W=W, R=R, K_uni=K_uni,
-            has_bi=has_bi, bslot0=bslot0, bslot1=bslot1, org=org,
-            sign=sign_d, sign_bi=sign_bi_d, lam=lam, lam_me=lam_me_d,
-            qpY=qpY, qpC=qpC, params=p, nmodes=enc.num_intra_modes,
-            luts_np=luts_np, ref_keys=keys, uploads=uploads, extra={})
+        ctx["rec"] = dict(frame_num=enc.frame_num, H=H, W=W, org=org,
+                          ref_keys=keys, uploads=uploads, fused=None)
+        if not enc.fused:
+            ctx["rec"].update(
+                R=R, K_uni=K_uni, has_bi=has_bi, bslot0=bslot0,
+                bslot1=bslot1, sign=ctx["sign"], sign_bi=ctx["sign_bi"],
+                lam=lam, lam_me=lam_me_d, qpY=qpY, qpC=qpC, params=p,
+                nmodes=enc.num_intra_modes, luts_np=ctx["luts_np"],
+                extra={})
     return ctx
+
+
+def _decide(enc, ctx, meas, intra):
+    """The C walk over the host maps and, with encoder_speed <= 1, the
+    second chance and the walk again: the leaves. Records "decide" and
+    "second_chance" in enc.frame_times[-1]."""
+    W, H = enc.width, enc.height
+    times = enc.frame_times[-1]
+    t0 = time.perf_counter()
+    intra_modes, _, intra_costs = intra_split_decisions(
+        intra, W, H, return_costs=True)
+    leaves = decide_frame(enc, meas, intra_modes, intra_costs, ctx["lam"],
+                          ctx["lam_me"])
+    t1 = time.perf_counter()
+    times["decide"] = t1 - t0
+    if enc.params.encoder_speed <= 1 and (
+            FU.second_chance(enc, ctx, leaves) if ctx["fused"]
+            else second_chance(enc, ctx, meas, leaves)):
+        leaves = decide_frame(enc, meas, intra_modes, intra_costs,
+                              ctx["lam"], ctx["lam_me"])
+    times["second_chance"] = time.perf_counter() - t1
+    return leaves
 
 
 def finish_inter_frame_device(enc, w, ctx):
     """Second half: fetch the cost maps, run the C walk (and the second
     chance), reconstruct on the device (kernels 2 and 6) and emit through
-    the C writers, which fill enc.deblock_data. Returns the unfiltered
-    (y, u, v) int32 planes on the device. Records "decide",
+    the C writers, which fill enc.deblock_data. Records "decide",
     "second_chance", "final" and "emit" in enc.frame_times[-1], with the
     counts "pus" (the MC's prediction units) and "intra_leaves"; on a
-    recorded frame the record gets the extra variants and the final
-    plan."""
+    recorded frame the record gets what its replay reads.
+
+    Stage by stage it returns the unfiltered (y, u, v) int32 planes on
+    the device. On the fused path the final program also ran the in-loop
+    filters, and it returns enc/fused.finish_frame's dict: the filtered
+    uint8 planes on the device and fetched, the padded reference planes
+    and the CLPF decision per superblock."""
+    if ctx["fused"]:
+        leaves = _decide(enc, ctx, ctx["meas"], ctx["intra"])
+        out = FU.finish_frame(enc, w, ctx, leaves)
+        if ctx.get("rec") is not None:
+            ctx["rec"]["fused"] = {k: ctx[k] for k in (
+                "sig", "small", "extra", "fsig", "fbuf")}
+        return out
     W, H = enc.width, enc.height
     p = enc.params
     times = enc.frame_times[-1]
@@ -787,17 +847,10 @@ def finish_inter_frame_device(enc, w, ctx):
         meas[s].update({k: trials[s][k].cpu().numpy()
                         for k in MEAS_KEYS if k in trials[s]})
         meas[s]["K_uni"] = ctx["K_uni"]
-    intra_modes, _, intra_costs = intra_split_decisions(
-        ctx["intra"], W, H, return_costs=True)
-    leaves = decide_frame(enc, meas, intra_modes, intra_costs, ctx["lam"],
-                          ctx["lam_me"])
-    t1 = time.perf_counter()
-    times["decide"] = t1 - t0
-    if p.encoder_speed <= 1 and second_chance(enc, ctx, meas, leaves):
-        leaves = decide_frame(enc, meas, intra_modes, intra_costs,
-                              ctx["lam"], ctx["lam_me"])
+    times["fetch"] = time.perf_counter() - t0
+    leaves = _decide(enc, ctx, meas, ctx["intra"])
+    times["decide"] += times.pop("fetch")
     t2 = time.perf_counter()
-    times["second_chance"] = t2 - t1
 
     plan = final_plan(leaves, ctx["sign_np"], ctx["sign_bi_np"], H, W, dev)
     y, u, v, q16y, q16c = final_frame(
@@ -832,6 +885,21 @@ def finish_inter_frame_device(enc, w, ctx):
 # ---------------------------------------------------------------------------
 # Replay (utils/device_encode_fps.py)
 # ---------------------------------------------------------------------------
+
+def clpf_cand_masks(dd, H, W):
+    """The CLPF candidate masks of a side-info map (numpy, thor_tpu's
+    _clpf_cand_masks :919): per plane, the [H/8, W/8] cells inside whole
+    superblocks whose block codes that plane and is not bipred."""
+    SBH, SBW = H // MAX_BLOCK_SIZE, W // MAX_BLOCK_SIZE
+    h8, w8 = SBH * 8, SBW * 8
+    notbi = dd.mode != MODE_BIPRED
+    out = []
+    for cbp in (dd.cbp_y, dd.cbp_u, dd.cbp_v):
+        c8 = np.zeros((H // 8, W // 8), bool)
+        c8[:h8, :w8] = ((cbp > 0) & notbi)[::2, ::2][:h8, :w8]
+        out.append(c8)
+    return tuple(out)
+
 
 def clpf_sb_sums(y, org_y, cy8, H, W):
     """The CLPF decision's measure (detect_clpf, enc/encode_block.c:3036):
@@ -886,7 +954,9 @@ def _replay_filters(rec, y, u, v, org_y):
 
 
 def replay_device_frame(rec, refstate):
-    """Run one recorded P/B frame's device work again: ME and the motion
+    """Run one recorded P/B frame's device work again. A frame of the
+    fused path replays its programs (enc/fused.replay_frame). Stage by
+    stage: ME and the motion
     variants, the trials of every size and of the second chance's
     variants, the intra search, the final reconstruction (kernels 2 and 6)
     and the in-loop filters, against the reference chain in `refstate`
@@ -895,10 +965,12 @@ def replay_device_frame(rec, refstate):
     the host walk and the emit. Inserts the frame's padded reference
     planes into refstate and returns its (y, u, v) uint8 reconstruction.
 
-    Adds no host wait of its own (no fetch of a device tensor); the
-    programs it shares with the live encode keep theirs (the quantizer's
-    zero-run loop, ops/kernels.py). Every tensor it reads lies on the
-    record, staged there when it was recorded."""
+    Adds no host wait of its own (no fetch of a device tensor; the
+    quantizer's zero-run pass runs on the card, csrc/rdoq.cu). Every
+    tensor it reads lies on the record, staged there when it was
+    recorded."""
+    if rec["fused"] is not None:
+        return FU.replay_frame(rec, refstate)
     for key, planes in rec["uploads"].items():
         refstate.setdefault(key, planes)
     refs = tuple(torch.stack([refstate[k][c] for k in rec["ref_keys"]])

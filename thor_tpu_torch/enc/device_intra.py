@@ -96,16 +96,16 @@ def _block_refs_dev(P, s, W, H, up_av, dl_av):
 
     topw = windows(RA, WB).reshape(N, s + 1)
     leftw = windows(CA.t(), HB).permute(1, 0, 2).reshape(N, s + 1)
-    up = torch.as_tensor(up_av, device=dev)[:, None]
-    dl = torch.as_tensor(dl_av, device=dev)[:, None]
+    up = K.const(up_av, dev)[:, None]
+    dl = K.const(dl_av, dev)[:, None]
     ttail = torch.where(up, topw[:, s:s + 1], topw[:, s - 1:s])
     ltail = torch.where(dl, leftw[:, s:s + 1], leftw[:, s - 1:s])
     top = torch.cat([topw[:, :s], ttail.expand(N, 128 - s)], dim=1)
     left = torch.cat([leftw[:, :s], ltail.expand(N, 128 - s)], dim=1)
     tl = Pp[0:HB * s:s, 0:WB * s:s].reshape(N)
     ty, tx = _block_grid(s, W, H)
-    row0 = torch.as_tensor(ty == 0, device=dev)
-    col0 = torch.as_tensor(tx == 0, device=dev)
+    row0 = K.const(ty == 0, dev)
+    col0 = K.const(tx == 0, dev)
     top = torch.where(row0[:, None], 128, top)
     left = torch.where(col0[:, None], 128, left)
     tl = torch.where(row0, left[:, 0], torch.where(~col0, tl, top[:, 0]))
@@ -141,7 +141,7 @@ def _search_size(orgY, orgU, orgV, s, W, H, fast, nmodes, qpY, qpC, lam,
     dl_av = _downleft_available_v(ty, tx, s, H)
     up_av_c = _upright_available_v(ty // 2, tx // 2, sc, W // 2)
     dl_av_c = _downleft_available_v(ty // 2, tx // 2, sc, H // 2)
-    tyd, txd = torch.as_tensor(ty, device=dev), torch.as_tensor(tx, device=dev)
+    tyd, txd = K.const(ty, dev), K.const(tx, dev)
 
     def plane_modes(orgs, b, W_, H_, up, dl, ty_, tx_, qp, chroma):
         """All modes of the planes `orgs` (one geometry, one QP) as one
@@ -171,9 +171,9 @@ def _search_size(orgY, orgU, orgV, s, W, H, fast, nmodes, qpY, qpC, lam,
         [orgU, orgV], sc, W // 2, H // 2, up_av_c, dl_av_c, tyd // 2,
         txd // 2, qpC, True)
 
-    mbits = torch.tensor(_intra_mode_bits(nmodes)[:nmodes], dtype=I32,
-                         device=dev)[:, None]
-    cbp_bits = torch.tensor(_CBP_BITS, dtype=I32, device=dev)[
+    mbits = K.const(np.array(_intra_mode_bits(nmodes)[:nmodes], np.int32),
+                    dev)[:, None]
+    cbp_bits = K.const(np.array(_CBP_BITS, np.int32), dev)[
         (cy + 2 * cu + 4 * cv).long()]
     bits = (mbits + cbp_bits + torch.where(cy != 0, bit_y, 0)
             + torch.where(cu != 0, bit_u, 0) + torch.where(cv != 0, bit_v, 0))
@@ -210,10 +210,12 @@ def intra_split_decisions(host, W, H, return_costs=False):
 
 def search_intra_frame_dev(org_y, org_u, org_v, qp, qpC, lam, W, H, fast,
                            nmodes, intra_quant=True):
-    """The per-size mode searches on the planes' device (lam rounded to
-    float32 here): {size: (mode_map, cost_map)} tensors there; the host
-    does not wait."""
-    lam32 = torch.tensor(lam, dtype=torch.float32, device=org_y.device)
+    """The per-size mode searches on the planes' device: {size: (mode_map,
+    cost_map)} tensors there; the host does not wait. lam: a float (rounded
+    to float32 here, a copy to the device) or a 0-d float32 tensor on the
+    planes' device (the fused P/B program's input)."""
+    lam32 = lam if torch.is_tensor(lam) else torch.tensor(
+        lam, dtype=torch.float32, device=org_y.device)
     return {s: _search_size(org_y, org_u, org_v, s, W, H, fast, nmodes, qp,
                             qpC, lam32, intra_quant)
             for s in (8, 16, 32, 64)}

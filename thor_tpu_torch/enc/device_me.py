@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.kernels import build_luma_mc_lut
+from ..ops.kernels import build_luma_mc_lut, const
 from ..ops.windowed import banded_windows
 
 PAD = 96            # luma reference padding (PADDING_Y)
@@ -128,7 +128,7 @@ def _subpel(ob, refp, lut, mvy, mvx, b, lam_me, py, px):
     gf = banded_windows(refp, mvy, mvx, PAD - 3, PAD - 3, b, b + 7,
                         M_SUB).to(I32)
     view = gf.unfold(2, b + 2, 1).unfold(3, b + 2, 1)  # [HB,WB,6,6,b+2,b+2]
-    lut_t = torch.as_tensor(np.asarray(lut, np.int32), device=ob.device)
+    lut_t = const(np.asarray(lut, np.int32), ob.device)
     # sads[p, oy, ox]: phase p's prediction at window offset (oy, ox)
     sads = []
     for p in range(16):
@@ -141,8 +141,8 @@ def _subpel(ob, refp, lut, mvy, mvx, b, lam_me, py, px):
     q = [(qy, qx) for qy in range(-3, 4) for qx in range(-3, 4)]
     sel = torch.stack([sads[(qy & 3) * 4 + (qx & 3), :, :, 1 + (qy >> 2),
                             1 + (qx >> 2)] for qy, qx in q])
-    qy = torch.tensor([a for a, _ in q], dtype=I32, device=ob.device)
-    qx = torch.tensor([c for _, c in q], dtype=I32, device=ob.device)
+    qy = const(np.array([a for a, _ in q], np.int32), ob.device)
+    qx = const(np.array([c for _, c in q], np.int32), ob.device)
     cy = 4 * mvy + qy[:, None, None]
     cx = 4 * mvx + qx[:, None, None]
     best, i = _first_min(sel + _rate(lam_me, _mv_bits(cx - px, cy - py)))

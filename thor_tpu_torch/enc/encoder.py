@@ -30,13 +30,13 @@ from ..bitstream.writer import BitWriter
 from ..codec.blockdata import DeblockData
 from ..codec.constants import (
     BETA_TABLE, B_FRAME, CHROMA_QP, I_FRAME, MAX_BLOCK_SIZE,
-    MAX_NUM_INTRA_MODES, MAX_REF_FRAMES, MAX_REORDER_BUFFER, MODE_BIPRED,
+    MAX_NUM_INTRA_MODES, MAX_REF_FRAMES, MAX_REORDER_BUFFER,
     PAD_C, PAD_Y, P_FRAME, SQUARED_LAMBDA_QP, TC_TABLE)
 from ..device import resolve_device
 from ..ops import kernels as K
 from ..ops.interp import interpolate_frames
 from ..utils.checkpoint import load_encoder_state, save_encoder_state
-from .device_inter import (clpf_apply, clpf_sb_sums,
+from .device_inter import (clpf_apply, clpf_cand_masks, clpf_sb_sums,
                            finish_inter_frame_device,
                            measure_inter_frame_device)
 from .device_intra import encode_intra_frame_device
@@ -260,16 +260,27 @@ class Encoder:
     one dict per encoded frame: the host-clock seconds of its stages, each
     ending where the host waits for the device anyway (host mirror
     frames: search, filters; device I frames: search, scan, emit,
-    filters, with the TU count "tus"; device P and B frames: me, trials,
-    intra_search, decide, second_chance, final, emit, filters, with the
-    counts "pus" of the MC and "intra_leaves" of the intra scan). With
-    record=True, `device_record` holds one record per device P/B frame,
-    the inputs of its device work on the device, for
-    enc/device_inter.replay_device_frame."""
+    filters, with the TU count "tus"; device P and B frames: measure (or,
+    with fused=False, me, trials and intra_search), decide,
+    second_chance, final, emit, filters, with the counts "pus" of the MC
+    and "intra_leaves" of the intra scan). With record=True,
+    `device_record` holds one record per device P/B frame, the inputs of
+    its device work on the device, for
+    enc/device_inter.replay_device_frame.
+
+    fused=True (the default; thor_tpu's fused dispatch) runs a device P/B
+    frame's device work as the three programs of enc/fused.py, one CUDA
+    graph each per signature on a card: measure, the second chance's
+    trials, and the final reconstruction with the in-loop filters, whose
+    CLPF bits the host then writes from the fetched decision
+    (_filters_done, thor_tpu's _filters_done_on_device). A capture that
+    fails raises. fused=False runs the stages one by one
+    (enc/device_inter) and the filters in _filters."""
 
     def __init__(self, params: EncoderParams, device=None,
-                 record: bool = False):
+                 record: bool = False, fused: bool = True):
         self.device = resolve_device(device)
+        self.fused = fused
         if params.device_encode:
             if params.width % 8 or params.height % 8:
                 raise ValueError("the device encoder needs a width and a "
@@ -315,8 +326,10 @@ class Encoder:
         self.deblock_data = DeblockData(self.width, self.height)
 
         # uint8 planes on the device: the frame being coded and its
-        # reconstruction
+        # reconstruction; rec_host, the reconstruction's numpy planes when
+        # a fused P/B frame fetched them already (else None)
         self.rec_y = self.rec_u = self.rec_v = None
+        self.rec_host = None
         self.org_y = self.org_u = self.org_v = None
         self.mirror = HostMirror(self)
         # the GOP-parallel planner (parallel/encode.py) sets _defer_interp:
@@ -354,6 +367,7 @@ class Encoder:
         encode_frame_finish)."""
         p = self.params
         self.deblock_data.reset()
+        self.rec_host = None
         if self.frame_type == I_FRAME:
             lambda_coeff = p.lambda_coeffI
         elif self.frame_type == P_FRAME:
@@ -395,15 +409,22 @@ class Encoder:
         """Drain a P/B frame's measurement context (the decision walk, the
         final reconstruction, the emit, the filters), then the
         sliding-window reference update."""
+        ref = None
         if ctx is not None:
-            y, u, v = finish_inter_frame_device(self, w, ctx)
+            out = finish_inter_frame_device(self, w, ctx)
             rec = ctx.get("rec")
-            self._filters(w, y, u, v, ctx["org"][0], rec)
+            if ctx["fused"]:
+                self._filters_done(w, out)
+                ref = RefFrame.of_padded(*out["padded"], self.frame_num)
+            else:
+                self._filters(w, *out, ctx["org"][0], rec)
             if rec is not None:
                 self.device_record.append(rec)
                 self.record_keys.add(("r", self.frame_num))
-        self.refs = [RefFrame(self.rec_y, self.rec_u, self.rec_v,
-                              self.frame_num)] + self.refs[:-1]
+        if ref is None:
+            ref = RefFrame(self.rec_y, self.rec_u, self.rec_v,
+                           self.frame_num)
+        self.refs = [ref] + self.refs[:-1]
         if not self.params.device_encode:
             self.refs[0].host()     # the mirror reads every reference
 
@@ -449,6 +470,22 @@ class Encoder:
             torch.cuda.current_stream(self.device).synchronize()
         self.frame_times[-1]["filters"] = time.perf_counter() - t0
 
+    def _filters_done(self, w, out):
+        """The filters of a fused P/B frame ran in its final program
+        (enc/fused.py): write the CLPF bits from the fetched decision
+        out["bit_sb"] over the candidates of the emit's side-info map,
+        and take the filtered planes (rec_y / rec_u / rec_v on the device,
+        rec_host fetched)."""
+        t0 = time.perf_counter()
+        if self.params.clpf:
+            w.putbits(1, 1)
+            w.putbits(1, 0)     # sb_signal: per-SB decision bits follow
+            self._write_clpf_bits(w, self._clpf_candidates()[1],
+                                  out["bit_sb"])
+        self.rec_y, self.rec_u, self.rec_v = out["planes"]
+        self.rec_host = out["host"]
+        self.frame_times[-1]["filters"] = time.perf_counter() - t0
+
     def _deblock_fields(self):
         """The side-info map packed as the deblocking ops read it (the
         decoder's plane, ops/kernels.pack_ddp), on the device."""
@@ -458,6 +495,25 @@ class Encoder:
             "mv1x", "mv1y")})
         return torch.from_numpy(ddp).to(self.device)
 
+    def _clpf_candidates(self):
+        """The CLPF candidates of the side-info map: its three [H/8, W/8]
+        masks (clpf_cand_masks) and the [SBH, SBW] superblocks they
+        touch."""
+        H, W = self.height, self.width
+        SBH, SBW = H // MAX_BLOCK_SIZE, W // MAX_BLOCK_SIZE
+        c8 = clpf_cand_masks(self.deblock_data, H, W)
+        cand_sb = (c8[0] | c8[1] | c8[2])[:SBH * 8, :SBW * 8] \
+            .reshape(SBH, 8, SBW, 8).any(axis=(1, 3))
+        return c8, cand_sb
+
+    @staticmethod
+    def _write_clpf_bits(w: BitWriter, cand_sb, bit_sb):
+        """The CLPF's per-superblock bits (common/common_frame.c:485-557):
+        the decision bit_sb of each candidate superblock in raster
+        order."""
+        for k, l in zip(*np.nonzero(cand_sb)):
+            w.putbits(1, 1 if bit_sb[k, l] else 0)
+
     def _clpf_frame(self, w: BitWriter, y, u, v, org_y, rec=None):
         """clpf_frame with the encoder's decision (common/common_frame.c:
         485-557, clpf_decision enc/encode_frame.c:50-61, detect_clpf
@@ -466,42 +522,23 @@ class Encoder:
         without the filter are summed per superblock there; only those
         sums come to the host, which writes one bit per candidate
         superblock. Returns the filtered (y, u, v)."""
-        dd = self.deblock_data
         H, W = self.height, self.width
-        SBH, SBW = H // MAX_BLOCK_SIZE, W // MAX_BLOCK_SIZE
-        if SBH == 0 or SBW == 0:
-            return y, u, v
-        h8, w8 = SBH * 8, SBW * 8
-
-        def cell8(a):
-            # 8x8 cells inside whole superblocks; zero elsewhere
-            out = np.zeros((H // 8, W // 8), bool)
-            out[:h8, :w8] = a[::2, ::2][:h8, :w8]
-            return out
-
-        notbi = dd.mode != MODE_BIPRED
-        cy8 = cell8((dd.cbp_y > 0) & notbi)
-        cu8 = cell8((dd.cbp_u > 0) & notbi)
-        cv8 = cell8((dd.cbp_v > 0) & notbi)
-        cand_sb = (cy8 | cu8 | cv8)[:h8, :w8] \
-            .reshape(SBH, 8, SBW, 8).any(axis=(1, 3))
+        c8, cand_sb = self._clpf_candidates()
         if not cand_sb.any():
             return y, u, v
 
         dev = self.device
-        c8 = tuple(torch.from_numpy(a).to(dev) for a in (cy8, cu8, cv8))
+        c8 = tuple(torch.from_numpy(a).to(dev) for a in c8)
         if rec is not None:
             rec["clpf_cand"] = c8
         sums = clpf_sb_sums(y, org_y, c8[0], H, W).cpu().numpy()
         bit_sb = sums[1] < sums[0]
-        for k in range(SBH):
-            for l in range(SBW):
-                if cand_sb[k, l]:
-                    w.putbits(1, 1 if bit_sb[k, l] else 0)
+        self._write_clpf_bits(w, cand_sb, bit_sb)
 
         on_sb = cand_sb & bit_sb
         if not on_sb.any():
             return y, u, v
+        h8, w8 = on_sb.shape[0] * 8, on_sb.shape[1] * 8
         on8 = np.zeros((H // 8, W // 8), bool)
         on8[:h8, :w8] = np.repeat(np.repeat(on_sb, 8, 0), 8, 1)
         return clpf_apply(y, u, v, c8, torch.from_numpy(on8).to(dev), H, W)
@@ -589,14 +626,14 @@ class Encoder:
                     self._setup_frame(num_encoded, sub_gop,
                                       min_interp_depth, last_PorI)
                     self.org_y, self.org_u, self.org_v = (
-                        torch.from_numpy(np.ascontiguousarray(a))
-                        .to(self.device) for a in frames[frame_num])
+                        upload(a, self.device) for a in frames[frame_num])
                     self.encode_frame(w)
                     out.write(w.flush_frame())
                     num_encoded += 1
-                    rec_avail[self.frame_num % MAX_REORDER_BUFFER] = tuple(
-                        t.cpu().numpy()
-                        for t in (self.rec_y, self.rec_u, self.rec_v))
+                    rec_avail[self.frame_num % MAX_REORDER_BUFFER] = \
+                        self.rec_host or tuple(
+                            t.cpu().numpy()
+                            for t in (self.rec_y, self.rec_u, self.rec_v))
                     nxt = (last_output + 1) % MAX_REORDER_BUFFER
                     if nxt in rec_avail:
                         last_output += 1
@@ -834,6 +871,15 @@ class Encoder:
 
 def _log2i(n: int) -> int:
     return n.bit_length() - 1
+
+
+def upload(a, device):
+    """A numpy plane on `device`: on a card through pinned memory, a copy
+    the host does not wait for."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 # Coding order <-> display order for dyadic sub-GOPs (enc/mainenc.c:48-61)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .kernels import const
 from .windowed import banded_windows_stack
 
 #: full-pel window-origin bounds: the device ME emits |mv| <= 163
@@ -42,7 +43,7 @@ def mc_pred_banded(refpads, slot, mvy, mvx, lut, pad: int, frac_bits: int,
     ivx = torch.clamp((mvx >> frac_bits) + tap_lo, -M, M)
     win = banded_windows_stack(refpads, slot, ivy, ivx, pad, pad, b,
                                b + T - 1, M).to(I32)
-    taps = torch.as_tensor(lut.astype(np.int32), device=refpads.device)[
+    taps = const(lut.astype(np.int32), refpads.device)[
         phase.long()]                                    # [HB, WB, T, T]
     # view [HB, WB, T, T, b, b]: tap (m, n) of output (i, j) is
     # win[m + i, n + j]

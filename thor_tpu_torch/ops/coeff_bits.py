@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..codec.constants import zigzag_for
+from .kernels import const
 
 I32 = torch.int32
 
@@ -97,8 +98,7 @@ def coeff_bits_batch(q, size: int, intra: bool, chroma: bool):
     qsize = min(size, 16)
     Nc = qsize * qsize
     dev = q.device
-    zz = torch.as_tensor(np.asarray(zigzag_for(qsize)), dtype=torch.long,
-                         device=dev)
+    zz = const(np.asarray(zigzag_for(qsize), np.int64), dev)
     small = size <= 8
     eob_bits = 1 if (chroma and small) else (2 if chroma else 3)
 

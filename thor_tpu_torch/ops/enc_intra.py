@@ -11,8 +11,11 @@ version walks coding order; the kernel runs a TU as soon as the earlier
 TUs that wrote its context samples are done (ops/intra.intra_levels gives
 the depth of that dependency graph). Records are
 those of the decoder's scan (ops/intra.py: ty, tx, size, mode, toplen,
-leftlen, cbx_nonzero; build_intra_records), one row per TU; there are no
-padding rows, row i of the coefficient output is TU i.
+leftlen, cbx_nonzero; build_intra_records), one row per TU, row i of the
+coefficient output being TU i. The device encoder's fused final program
+(enc/fused.py) pads them to a bucket and passes the real count on the
+device, as the decoder's scan takes it (ops/intra.py): the padded records
+never run and their rows of the coefficient output stay zero.
 
 Every plane is quantized with the luma rule (chroma=False in
 quantize_fwd_batch), as the JAX scans do; only the search tells chroma
@@ -35,21 +38,24 @@ from .intra import NF, PADE, PADI, _predict, tu_context
 I32 = torch.int32
 
 
-def encode_scan_plain(planes, org, recs, qp: int, fast: bool, intra: bool):
+def encode_scan_plain(planes, org, recs, qp: int, fast: bool, intra: bool,
+                      count=None):
     """Sequential encode + exact reconstruction over TU records.
 
     planes/org: [C, H, W] int32 (C = 1 luma, sizes 8..64; C = 2 for U+V,
     sizes 4..32, sharing TU geometry); recs: [N, 7] int32; qp: the QP of
     this plane class; fast: box-summed transforms above 16x16; intra: the
-    quantizer's offset set. Returns (planes [C, H, W] int32, q16
-    [N, C, 16, 16] int16: the low-frequency levels of every TU)."""
+    quantizer's offset set; count: as encode_scan's. Returns (planes
+    [C, H, W] int32, q16 [N, C, 16, 16] int16: the low-frequency levels of
+    every TU, zero for a padded record)."""
     encode_scan_plain.calls += 1
     C, H, W = planes.shape
     dev = planes.device
     P = F.pad(planes.to(I32), (PADI, PADE, PADI, PADE))
     O = org.to(I32)
-    n = recs.shape[0]
-    q16 = torch.zeros((n, C, 16, 16), dtype=torch.int16, device=dev)
+    q16 = torch.zeros((recs.shape[0], C, 16, 16), dtype=torch.int16,
+                      device=dev)
+    recs = K.real_records(recs, count)
     zzs = {qs: torch.as_tensor(zigzag_for(qs), dtype=torch.long, device=dev)
            for qs in (4, 8, 16)}
     for t, rec in enumerate(recs.tolist()):
@@ -77,10 +83,10 @@ def _kernel():
     if _lib is None:
         L = _build.cuda_library("enc_intra_scan")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        L.thor_enc_intra_scan.restype = ci
-        L.thor_enc_intra_scan.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci,
-                                          vp, vp, ci, ci, ci, ci, ci, ci,
-                                          vp]
+        L.thor_enc_intra_scan_count.restype = ci
+        L.thor_enc_intra_scan_count.argtypes = [
+            vp, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
+            ci, vp]
         L.thor_cuda_error_string.restype = ctypes.c_char_p
         L.thor_cuda_error_string.argtypes = [ci]
         _lib = L
@@ -95,19 +101,23 @@ def scan_scratch(H: int, W: int, dev):
                        device=dev)
 
 
-def encode_scan(planes, org, recs, qp: int, fast: bool, intra: bool):
+def encode_scan(planes, org, recs, qp: int, fast: bool, intra: bool,
+                count=None):
     """Encoder intra scan of C planes sharing one TU record set; see
-    encode_scan_plain for the arguments and the result. A CPU tensor takes
-    the plain version; a CUDA tensor launches csrc/enc_intra_scan.cu
-    (which writes a copy of `planes` and reads `planes`, left as it was,
-    wherever no earlier TU wrote). The records come from
-    ops/intra.build_intra_records: TUs inside the plane, 4-aligned, not
-    overlapping."""
+    encode_scan_plain for the arguments and the result. count: None (all
+    N records are real) or a [1] int32 tensor on the planes' device, the
+    number of real records at the head of recs (the rest pad a bucket and
+    never run). A CPU tensor takes the plain version; a CUDA tensor
+    launches csrc/enc_intra_scan.cu (which writes a copy of `planes` and
+    reads `planes`, left as it was, wherever no earlier TU wrote). The
+    records come from ops/intra.build_intra_records: TUs inside the plane,
+    4-aligned, not overlapping."""
     if planes.device.type == "cpu":
-        return encode_scan_plain(planes, org, recs, qp, fast, intra)
+        return encode_scan_plain(planes, org, recs, qp, fast, intra, count)
     if planes.device.type != "cuda":
         raise ValueError(f"encode_scan: unsupported device {planes.device}")
     check_current("encode_scan", planes.device)
+    K.check_count("encode_scan", count, planes.device)
     if planes.dim() != 3 or org.shape != planes.shape:
         raise ValueError("encode_scan: planes and org must be [C, H, W]")
     for name, t in (("planes", planes), ("org", org), ("recs", recs)):
@@ -122,15 +132,16 @@ def encode_scan(planes, org, recs, qp: int, fast: bool, intra: bool):
     C, H, W = planes.shape
     n = recs.shape[0]
     out = planes.clone()
-    q16 = torch.empty((n, C, 16, 16), dtype=torch.int16,
-                      device=planes.device)
+    q16 = (torch.empty if count is None else torch.zeros)(
+        (n, C, 16, 16), dtype=torch.int16, device=planes.device)
     if n:
         L = _kernel()
         gdq = int(GDEQUANT_TABLE[qp % 6])
         scratch = scan_scratch(H, W, planes.device)
-        err = L.thor_enc_intra_scan(
+        err = L.thor_enc_intra_scan_count(
             planes.data_ptr(), out.data_ptr(), org.data_ptr(), C, H, W,
-            recs.data_ptr(), n, scratch.data_ptr(), q16.data_ptr(),
+            recs.data_ptr(), n, None if count is None else count.data_ptr(),
+            scratch.data_ptr(), q16.data_ptr(),
             int(GQUANT_TABLE[qp % 6]), qp // 6,
             gdq << (qp // 6), 73 * gdq, int(bool(fast)), int(bool(intra)),
             torch.cuda.current_stream(planes.device).cuda_stream)

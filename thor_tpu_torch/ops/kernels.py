@@ -4,13 +4,20 @@ The batched ops of thor_tpu/ops/jax_kernels.py, on int32 tensors. The
 JAX package runs these as XLA ops (no Pallas kernel), so plain tensor
 ops are their port: residual (dequant + inverse DCT + scatter),
 deblocking, CLPF and the MC phase-weight tables for the decoder; forward
-transform, forward quantizer with its zero-run pass and the exact
-reconstruction from levels for the encoder. Every op is exact integer
-arithmetic; `>>` on int32 tensors is an arithmetic shift, as in JAX and
-the C reference.
+transform, forward quantizer and the exact reconstruction from levels for
+the encoder. Every op is exact integer arithmetic; `>>` on int32 tensors
+is an arithmetic shift, as in JAX and the C reference.
+
+One exception: the quantizer's zero-run pass is serial within a row and
+data-dependent. Its plain version (_rdoq_light) asks the host after every
+step whether a row has a step left, which on a card is a wait per step
+and cannot sit in a CUDA graph; rdoq_light launches the hand-written
+kernel csrc/rdoq.cu for a CUDA tensor instead.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -19,6 +26,8 @@ from ..codec.constants import (
     FILTER_C, FILTER_Y_BI, FILTER_Y_CENTER, FILTER_Y_UNI, GDEQUANT_TABLE,
     GQUANT_TABLE, log2i)
 from ..codec.dct_tables import TMAT_4, TMAT_8, TMAT_16, TMAT_32
+from ..device import check_current
+from . import _build
 
 TMAT = {4: np.array(TMAT_4, np.float64), 8: np.array(TMAT_8, np.float64),
         16: np.array(TMAT_16, np.float64),
@@ -53,6 +62,15 @@ def device_table(key, device, make):
 def tmat(size: int, device):
     """The float64 DCT matrix of `size` on `device`."""
     return device_table(("tmat", size), device, lambda: TMAT[size])
+
+
+def const(a, device):
+    """The numpy array `a` as a constant table on `device` (device_table
+    keyed by its dtype, shape and bytes): for the small per-geometry
+    tables (availability flags, tap LUTs, code lengths) the ops read."""
+    a = np.ascontiguousarray(a)
+    return device_table(("const", a.dtype.str, a.shape, a.tobytes()),
+                        device, lambda: a)
 
 
 # ---------------------------------------------------------------------------
@@ -450,6 +468,26 @@ def quantize_fwd_batch(coeff, qp: int, size: int, intra: bool, zigzag_inv,
     levels, [N] bool cbp). cbp is taken before the zero-run pass and
     masks its result; the pass only ever writes +-1, so cbp equals
     "any level nonzero" afterwards too."""
+    q, scoeff, last_pos, zz = quant_scan(coeff, qp, size, intra, zigzag_inv,
+                                         chroma)
+    qsize = min(size, 16)
+    Nc = qsize * qsize
+    cbp = (q != 0).any(dim=1)
+    q = rdoq_light(q, scoeff, last_pos, qp, log2i(size), Nc, chroma)
+    q = torch.where(cbp[:, None], q, 0)
+    out = torch.zeros((coeff.shape[0], size, size), dtype=I32,
+                      device=coeff.device)
+    out[:, :qsize, :qsize] = q[:, zz].reshape(-1, qsize, qsize)
+    return out, cbp
+
+
+def quant_scan(coeff, qp: int, size: int, intra: bool, zigzag_inv,
+               chroma: bool = False):
+    """quantize_fwd_batch up to its zero-run pass: (q [N, Nc] int32
+    scan-order levels, zero past each row's last position; scoeff [N, Nc]
+    int32 raw coefficients in scan order; last_pos [N] int32, -1 for a
+    block with no significant coefficient; zz, the zigzag on the device),
+    Nc = min(size, 16)^2: the inputs of rdoq_light."""
     qsize = min(size, 16)
     Nc = qsize * qsize
     tr_log2size = log2i(size)
@@ -481,12 +519,66 @@ def quantize_fwd_batch(coeff, qp: int, size: int, intra: bool, zigzag_inv,
         level = (absc + torch.where((absc >> shift2) == 0, off0, off1)) \
             >> shift2
     q = torch.where(pos <= last_pos[:, None], sign * level, 0)
-    cbp = (q != 0).any(dim=1)
-    q = _rdoq_light(q, scoeff, last_pos, qp, tr_log2size, Nc, chroma)
-    q = torch.where(cbp[:, None], q, 0)
-    out = torch.zeros((coeff.shape[0], size, size), dtype=I32, device=dev)
-    out[:, :qsize, :qsize] = q[:, zz].reshape(-1, qsize, qsize)
-    return out, cbp
+    return q, scoeff, last_pos, zz
+
+
+def _rdoq_threshold(qp: int, tr_log2size: int) -> int:
+    return (73 * int(GDEQUANT_TABLE[qp % 6]) << (qp // 6)) \
+        >> (4 + tr_log2size)
+
+
+_rdoq_lib = None
+
+
+def _rdoq_kernel():
+    global _rdoq_lib
+    if _rdoq_lib is None:
+        L = _build.cuda_library("rdoq")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        L.thor_rdoq.restype = ci
+        L.thor_rdoq.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        L.thor_cuda_error_string.restype = ctypes.c_char_p
+        L.thor_cuda_error_string.argtypes = [ci]
+        _rdoq_lib = L
+    return _rdoq_lib
+
+
+def rdoq_light(q, scoeff, last_pos, qp: int, tr_log2size: int, Nc: int,
+               chroma: bool):
+    """The zero-run pass of [N, Nc] scan-order levels q (zero past each
+    row's last_pos), raw coefficients scoeff and [N] last_pos: a new
+    [N, Nc] int32 tensor. A CPU tensor takes the plain version
+    (_rdoq_light); a CUDA tensor launches csrc/rdoq.cu, one warp a row,
+    with no wait for the host; it writes the new tensor whole and reads q
+    only up to each row's last_pos."""
+    if q.device.type == "cpu":
+        return _rdoq_light(q, scoeff, last_pos, qp, tr_log2size, Nc, chroma)
+    if q.device.type != "cuda":
+        raise ValueError(f"rdoq_light: unsupported device {q.device}")
+    check_current("rdoq_light", q.device)
+    if Nc > 256 or q.dim() != 2 or q.shape[1] != Nc \
+            or scoeff.shape != q.shape or last_pos.shape != q.shape[:1]:
+        raise ValueError("rdoq_light: q and scoeff must be [N, Nc <= 256], "
+                         "last_pos [N]")
+    q = q.to(I32).contiguous()
+    out = torch.empty_like(q)
+    N = out.shape[0]
+    if N and Nc:
+        sco = scoeff.to(I32).contiguous()
+        last = last_pos.to(I32).contiguous()
+        L = _rdoq_kernel()
+        err = L.thor_rdoq(q.data_ptr(), out.data_ptr(), sco.data_ptr(),
+                          last.data_ptr(), N, Nc,
+                          _rdoq_threshold(qp, tr_log2size), int(bool(chroma)),
+                          torch.cuda.current_stream(q.device).cuda_stream)
+        if err:
+            raise RuntimeError("rdoq_light launch failed: "
+                               + L.thor_cuda_error_string(err).decode())
+        rdoq_light.launches += 1
+    return out
+
+
+rdoq_light.launches = 0
 
 
 def _rdoq_light(q, scoeff, last_pos, qp: int, tr_log2size: int, Nc: int,
@@ -505,12 +597,12 @@ def _rdoq_light(q, scoeff, last_pos, qp: int, tr_log2size: int, Nc: int,
     behind it, until no row has one. thor_tpu's XLA form steps through
     every position (jax_kernels._rdoq_light); its TPU kernel jumps as
     this does. The comparisons use the raw |coefficient|, not the scaled
-    magnitude."""
+    magnitude. The plain version of rdoq_light (csrc/rdoq.cu)."""
     if Nc <= 2:
         return q
+    _rdoq_light.calls += 1
     dev = q.device
-    thr = (73 * int(GDEQUANT_TABLE[qp % 6]) << (qp // 6)) \
-        >> (4 + tr_log2size)
+    thr = _rdoq_threshold(qp, tr_log2size)
     pos = _arange(Nc, dev)[None, :]
     absv = scoeff.abs()
     sgn = (scoeff >> 31) | 1
@@ -540,6 +632,9 @@ def _rdoq_light(q, scoeff, last_pos, qp: int, tr_log2size: int, Nc: int,
         q.scatter_(1, tgt, torch.where(exists, sgn.gather(1, tgt),
                                        q.gather(1, tgt)))
         cursor = p + 1
+
+
+_rdoq_light.calls = 0
 
 
 def recon_from_q(pred, q, s: int, qp: int):

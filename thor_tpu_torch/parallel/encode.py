@@ -85,7 +85,9 @@ class ShardedEncoder:
                 if dev.type == "cuda" else [dev]
         self.slots = [Slot(resolve_device(d)) for d in devices]
         self.params = params
-        self.enc = Encoder(params, device=self.slots[0].device)
+        # the eager path: the clones run at once on several streams, which
+        # the shared graphs of the fused path (enc/fused.py) do not allow
+        self.enc = Encoder(params, device=self.slots[0].device, fused=False)
         self.enc._defer_interp = True
 
     # -- one planned frame ------------------------------------------------

@@ -47,7 +47,7 @@ from ..dec.parse import SequenceHeader
 from ..dec.reconstruct import mc_luts, reconstruct_frame, to_device
 from ..device import resolve_device, synchronize
 from ..native import parse_frame, seqhdr_from_python
-from ..ops import interp
+from ..ops import graphs as G, interp
 from .tracing import host_waits
 
 TESTDATA = Path(__file__).resolve().parents[2] / "testdata"
@@ -130,7 +130,7 @@ def measure(path=DEFAULT, reps=3, device=None, fused=True):
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    stats0 = dict(F.STATS)
+    stats0 = dict(G.STATS)
     work, luts = capture(path, dev, fused)
     n = len(work)
     with host_waits(dev) as sites:
@@ -162,8 +162,8 @@ def measure(path=DEFAULT, reps=3, device=None, fused=True):
             "golden": kind, "device": str(dev), "fused": fused,
             "signatures": len({f["inp"].sig for f in work}) if fused
             else None,
-            "captures": F.STATS["captures"] - stats0["captures"],
-            "capture_ms": F.STATS["capture_ms"] - stats0["capture_ms"]}
+            "captures": G.STATS["captures"] - stats0["captures"],
+            "capture_ms": G.STATS["capture_ms"] - stats0["capture_ms"]}
 
 
 def main(argv=None):

@@ -114,7 +114,9 @@ def _device_events(averages):
 def profile_run(run):
     """Runs `run()` under torch.profiler (CPU + CUDA activities), ending
     in a synchronize: (run's result, wall ms, device ms by group, the 12
-    kernels with most device time as (ms, launches, name), launches)."""
+    kernels with most device time as (ms, launches, name), the kernels
+    and copies the card ran, the host calls that queued work
+    (LAUNCH_CALLS: a CUDA graph's replay is one))."""
     result, wall, averages = _profiled(run)
     groups, kernels, launches = {}, [], 0
     for us, count, key in _device_events(averages):
@@ -123,25 +125,13 @@ def profile_run(run):
         kernels.append((us / 1e3, count, key[:90]))
         launches += count
     kernels.sort(reverse=True)
-    return result, wall, groups, kernels[:12], launches
-
-
-def profile_launches(run):
-    """`run()` under torch.profiler: (run's result, wall ms, device busy
-    ms, the kernels and copies the card ran, the host calls that queued
-    work (LAUNCH_CALLS: a CUDA graph's replay is one))."""
-    result, wall, averages = _profiled(run)
-    busy = ran = 0
-    for us, count, _ in _device_events(averages):
-        busy += us / 1e3
-        ran += count
     calls = sum(e.count for e in averages if e.key.startswith(LAUNCH_CALLS))
-    return result, wall, busy, ran, calls
+    return result, wall, groups, kernels[:12], launches, calls
 
 
 def device_profile(path, dev):
     """(frames, wall ms of one decode, device ms by group, top kernels)."""
-    n, wall, groups, top, _ = profile_run(
+    n, wall, groups, top, _, _ = profile_run(
         lambda: sum(1 for _ in Decoder(device=dev).decode_stream(path)))
     return n, wall, groups, top
 

@@ -360,7 +360,7 @@ def ab_interp_mc(libs, dev, other_padded):
     for k in ("other", "tree"):
         whole(k)
         torch.cuda.synchronize()
-        _, _, groups, top, n = profile_run(lambda: whole(k))
+        _, _, groups, top, n, _ = profile_run(lambda: whole(k))
         print(f"interp_mc {k} whole synthesis under torch.profiler: {n} "
               f"kernels, device {sum(groups.values()):.4f} ms: "
               + "; ".join(f"{c} x {name} {ms:.4f} ms" for ms, c, name in top),
