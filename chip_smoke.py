@@ -1070,6 +1070,9 @@ def phase_slice(path, must_launch, goldens, dev, card):
 
 
 
+RA16_CALLS = 25     # host launch calls a fused RA16 frame, at most
+
+
 def phase_fused_ab(dev, card):
     """The frame program as CUDA graphs (fused, the Decoder's default)
     against the eager stages (fused=False), both 1080p streams, in turns:
@@ -1079,14 +1082,18 @@ def phase_fused_ab(dev, card):
     host ms, its fps); then warm end-to-end decodes fused, eager,
     eager, fused (sha256 each, peak device memory); the device-only
     replay of each (utils/device_decode_fps: fps, best of FPS_REPEATS
-    rounds, host waits a frame in the untimed round, signatures); one warm
-    decode of each under torch.profiler (the kernels and copies the card
-    ran and the host calls that queued them, a frame). Returns {stream:
-    {mode: numbers}}."""
+    rounds, host waits a frame in the untimed round, signatures, the
+    interpolated reference's signatures); one warm decode of each under
+    torch.profiler (the kernels and copies the card ran and the host calls
+    that queued them, a frame; RA16's fused calls a frame are logged
+    against RA16_CALLS, with the host calls of one interpolated reference
+    on each path). Returns {stream: {mode: numbers}}."""
     from thor_tpu_torch.dec import fused as F
-    from thor_tpu_torch.ops import graphs as G
+    from thor_tpu_torch.ops import graphs as G, interp_fused as IF
     from thor_tpu_torch.utils import device_decode_fps as DDF
-    from thor_tpu_torch.utils.profile_decode import host_stages, profile_run
+    from thor_tpu_torch.utils.profile_decode import (host_stages,
+                                                     interp_launch_calls,
+                                                     profile_run)
     t_phase = time.perf_counter()
     out = {}
     G.CACHE.clear()     # the streams' signatures differ: each decodes cold
@@ -1130,6 +1137,8 @@ def phase_fused_ab(dev, card):
             r["host_wait_sites"] = d["host_wait_sites"]
             if fused:
                 r["signatures"] = d["signatures"]
+                r["interp_signatures"] = d["interp_signatures"]
+                r["interp_entries"] = len(IF.entries(dev))
         for fused in (True, False):
             (n, _, _), wall, groups, _, ran, calls = profile_run(
                 lambda: decode(path, dev, fused))
@@ -1138,6 +1147,17 @@ def phase_fused_ab(dev, card):
             r.update(device_ops_per_frame=ran / n,
                      launch_calls_per_frame=calls / n,
                      profiled_busy_ms=busy, profiled_wall_ms=wall)
+        if path == STREAM_RA_1080:
+            calls = interp_launch_calls(str(path), dev)
+            for m in res:
+                res[m]["interp_launch_calls"] = calls[m]
+            per_frame = res["fused"]["launch_calls_per_frame"]
+            log(f"[ab] {path.name} fused: {per_frame:.1f} host launch calls "
+                f"a frame (limit {RA16_CALLS}: "
+                f"{'met' if per_frame <= RA16_CALLS else 'NOT MET'}); one "
+                f"interpolated reference: {calls['fused']} calls through "
+                f"its graph, {calls['eager']} stage by stage "
+                f"(torch.profiler, warm); card {card}")
         for m, r in res.items():
             log(f"[ab] {path.name} {m}: " + json.dumps(r) + f"; card {card}")
         log(f"[ab] {path.name}: {time.perf_counter() - t_stream:.1f} s")
@@ -1525,6 +1545,15 @@ def decode_equals(path, recons, dev, what):
                              "reconstruction")
 
 
+def intra_finals():
+    """The I-frame final programs the graph cache holds (each captured
+    once, its warm-up launching kernel 6 twice for real)."""
+    from thor_tpu_torch.enc.fused_intra import IntraEntry
+    from thor_tpu_torch.ops import graphs as G
+    return sum(len(e.finals) for e in G.CACHE.entries.values()
+               if isinstance(e, IntraEntry))
+
+
 def phase_encode(dev, card, out_dir):
     """The device encoder's I-frame path. Returns the launches of the
     1080p encode."""
@@ -1538,6 +1567,7 @@ def phase_encode(dev, card, out_dir):
     out = out_dir / "enc_1080.bit"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    f0 = intra_finals()
     zero_counters()
     enc = Encoder(enc_params(ENC_1080))
     t0 = time.perf_counter()
@@ -1564,7 +1594,10 @@ def phase_encode(dev, card, out_dir):
         f"{', '.join(f'{x:.3f}' for x in psnr)} dB; "
         f"max_memory_allocated={peak} B; launches {launches}; plain calls "
         f"{plain_calls}; card {card}")
-    if launches["encode_scan"] != 2 * len(recons) or len(recons) != 3 \
+    # the I frame's final program runs twice in a frame that captures it
+    # (its warm-up, then the replay)
+    runs = len(recons) + intra_finals() - f0
+    if launches["encode_scan"] != 2 * runs or len(recons) != 3 \
             or any(plain_calls.values()):
         raise AssertionError("the 1080p encode did not run through "
                              "encode_scan alone, twice per frame")
@@ -1577,11 +1610,13 @@ def phase_encode(dev, card, out_dir):
 
     # 2. CIF through the command line: 4 modes, fast transforms, delta-QP
     cif, rec = out_dir / "enc_cif_fast.bit", out_dir / "enc_cif_fast_rec.yuv"
+    f0 = intra_finals()
     zero_counters()
     rc = enc_main(["-if", str(TESTDATA / "test_cif.yuv"), "-of", str(cif),
                    "-rf", str(rec)] + ENC_CIF_FAST)
     l_cif, p_cif = read_counters()
-    if rc != 0 or l_cif["encode_scan"] != 4 or any(p_cif.values()):
+    if rc != 0 or l_cif["encode_scan"] != 2 * (2 + intra_finals() - f0) \
+            or any(p_cif.values()):
         raise AssertionError("the CIF command-line encode failed or did not "
                              "run through encode_scan")
     raw = np.frombuffer(rec.read_bytes(), np.uint8).reshape(2, -1)
@@ -1831,11 +1866,15 @@ def phase_encode_fused(dev, card, out_dir):
     unpadded launch; then frames 0-2 of the 1080p LDB form (ENC_1080_PB),
     in turns fused (cold: no encoder entry cached), eager, eager, fused,
     each with record=True, its host waits a P frame by site, its stage
-    times, captures and capture ms; gates: the four streams' bytes equal,
+    times, captures and capture ms, and the I frame's (the two programs of
+    enc/fused_intra.py, or the eager path): host waits, search and scan +
+    filters ms; gates: the four streams' bytes equal, the warm fused I
+    frame at most 3 host waits,
     each path's decode equal to its reconstruction; then each path's P
     frames under torch.profiler (kernel launches and host launch calls a
-    P frame, device busy and idle share), the graphs' footprint, and each
-    path's device-only replay (utils/device_encode_fps.replay); last, a
+    P frame, device busy and idle share; the I frame's too), the graphs'
+    footprint, and each path's device-only replay of its P frames and of
+    its I frame (utils/device_encode_fps.replay, replay_intra); last, a
     cold fused single pass over all 5 frames of the crop
     (utils/device_encode_fps.measure: captures and capture ms by P frame,
     its replay gated). Returns (rows, max_err, the launches of the cold
@@ -1843,6 +1882,7 @@ def phase_encode_fused(dev, card, out_dir):
     the first turn and before the single pass; the decoder's stay."""
     from thor_tpu_torch.dec import fused as F
     from thor_tpu_torch.enc.fused import EncEntry
+    from thor_tpu_torch.enc.fused_intra import IntraEntry
     from thor_tpu_torch.ops import enc_intra as EI, graphs as G
     from thor_tpu_torch.utils import device_encode_fps as DEF
     from thor_tpu_torch.utils.profile_encode import ProfiledEncoder
@@ -1880,10 +1920,11 @@ def phase_encode_fused(dev, card, out_dir):
     fields = dict(ENC_1080_PB, num_frames=3)
     res = {m: {"e2e_s": [], "stages": []} for m in ("fused", "eager")}
     streams, encs = {}, {}
-    # the encoder's entries go, so that the first turn captures; the
-    # decoder's graphs stay for the later phases' warm decodes
+    # the encoder's entries (P/B and I frame) go, so that the first turn
+    # captures; the decoder's graphs stay for the later phases' warm
+    # decodes
     torch.cuda.synchronize()
-    G.CACHE.drop(EncEntry)
+    G.CACHE.drop((EncEntry, IntraEntry))
     launches_cold = None
     for turn, fused in enumerate((True, False, False, True)):
         m = "fused" if fused else "eager"
@@ -1913,6 +1954,12 @@ def phase_encode_fused(dev, card, out_dir):
         r["stages"].append([{k: round(v * 1e3, 2) if isinstance(v, float)
                              else v for k, v in ft.items()}
                             for ft in enc.frame_times[1:]])
+        # the I frame (enc/fused_intra.py's two graphs, or the eager path)
+        ic = DEF.intra_counts(enc)
+        for k in ("live_host_waits_per_i_frame", "search_ms",
+                  "scan_filters_ms", "emit_ms"):
+            r.setdefault("i_" + k, []).append(ic[k])
+        r["i_host_wait_sites"] = ic["live_host_wait_sites"]
         r.setdefault("captures", []).append(G.STATS["captures"]
                                             - s0["captures"])
         r.setdefault("capture_ms", []).append(G.STATS["capture_ms"]
@@ -1929,12 +1976,21 @@ def phase_encode_fused(dev, card, out_dir):
     res["fused"]["signatures"] = sum(
         1 + len(e.finals) + (e.extra.graph is not None)
         for e in G.CACHE.entries.values() if isinstance(e, EncEntry))
+    res["fused"]["i_signatures"] = sum(
+        1 + len(e.finals)
+        for e in G.CACHE.entries.values() if isinstance(e, IntraEntry))
     for m, fused in (("fused", True), ("eager", False)):
         prof = ProfiledEncoder(enc_params(fields), fused=fused)
         prof.encode_sequence(frames, str(out_dir / f"enc_1080_prof_{m}.bit"))
         pb = prof.profiles[1:]
         wall = sum(p[0] for p in pb)
         busy = sum(sum(p[1].values()) for p in pb)
+        iw, ig, _, il, ic = prof.profiles[0]
+        res[m].update(i_kernel_launches=il, i_host_launch_calls=ic,
+                      i_profiled_wall_ms=iw,
+                      i_profiled_busy_ms=sum(ig.values()),
+                      i_profiled_idle_share=max(0.0,
+                                                1 - sum(ig.values()) / iw))
         res[m].update(
             kernel_launches_per_pb_frame=sum(p[3] for p in pb) / len(pb),
             host_launch_calls_per_pb_frame=sum(p[4] for p in pb) / len(pb),
@@ -1945,12 +2001,21 @@ def phase_encode_fused(dev, card, out_dir):
         res[m].update(device_only_fps=d["device_fps"],
                       replay_s=d["seconds"],
                       replay_host_waits_per_frame=d["host_waits_per_frame"])
+        d = DEF.replay_intra(*encs[m], reps=FPS_REPEATS)
+        res[m].update(i_device_only_fps=d["device_fps"],
+                      i_replay_s=d["seconds"],
+                      i_replay_host_waits=d["host_waits_per_frame"])
+    waits = res["fused"]["i_live_host_waits_per_i_frame"][-1]
+    if waits > 3:
+        raise AssertionError(f"the warm fused 1080p I frame waited on the "
+                             f"host {waits} times (at most 3): "
+                             f"{res['fused']['i_host_wait_sites']}")
     for m, r in res.items():
         log(f"[fused-enc] 1080p LDB-form I P P, {m}: " + json.dumps(r)
             + f"; card {card}")
     # a fresh single pass over every frame of the crop: how often a P
     # frame still captures a program once the first ones are in
-    G.CACHE.drop(EncEntry)
+    G.CACHE.drop((EncEntry, IntraEntry))
     one = DEF.measure(frames_1080(5), {k: v for k, v in ENC_1080_PB.items()
                                        if k != "num_frames"},
                       reps=1, device=dev)
@@ -1970,7 +2035,9 @@ def phase_encode_fused(dev, card, out_dir):
         f"torch.cuda's sync debug mode; launches and launch calls from "
         f"torch.profiler over a third encode of each path, its P frames; "
         f"device_only_fps: the recorded P frames replayed back to back, "
-        f"best of {FPS_REPEATS}); card {card}")
+        f"best of {FPS_REPEATS}; i_*: the I frame, its host waits, search "
+        f"and scan + filters ms by turn, its profile in the third encode, "
+        f"i_device_only_fps its replay, best of {FPS_REPEATS}); card {card}")
     return rows, max_err, launches_cold
 
 

@@ -106,10 +106,12 @@ def test_walk_map_equals_emit_map(name, tmp_path, one_thread):
     """On every P/B frame the side-info map the walk's leaves replay into
     (the final program's deblocking input) equals the emit's on every
     packed field except intra cbp, and the CLPF masks the program patches
-    from its intra scans equal the emit-time masks."""
+    from its intra scans equal the emit-time masks. The I frame's final
+    program (enc/fused_intra.py) takes the same way, its map patched to
+    the emit's on the card."""
     _, _, enc, _ = _encode(name, tmp_path, cls=_Watched)
     n_pb = sum("measure" in ft for ft in enc.frame_times)
-    assert len(enc.maps) == n_pb > 0
+    assert n_pb > 0 and len(enc.maps) == len(enc.frame_times)
     for walk, emit, cm, cm_emit in enc.maps:
         intra = (emit & 1) != 0
         assert np.array_equal(walk & 1, emit & 1)

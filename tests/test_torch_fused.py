@@ -28,7 +28,7 @@ from thor_tpu_torch.dec.decoder import decode_file
 from thor_tpu_torch.dec.inputs import build_frame_inputs
 from thor_tpu_torch.dec.parse import SequenceHeader
 from thor_tpu_torch.native import parse_frame, seqhdr_from_python
-from thor_tpu_torch.ops import graphs as G, intra as IT
+from thor_tpu_torch.ops import graphs as G, interp as TI, intra as IT
 from thor_tpu_torch.ops import mc as M
 from thor_tpu_torch.ops.kernels import build_chroma_mc_lut, build_luma_mc_lut
 
@@ -253,18 +253,21 @@ def test_cache_drops_one_kind():
 
 
 def test_capture_counts_are_taken_back():
-    """A stub capture that 'launches' both kernels: its counts are
-    returned and the wrappers' counters are as before."""
-    n0 = (M.mc_frame.launches, IT.intra_scan.launches)
+    """A stub capture that 'launches' both decoder kernels and the three
+    interpolation kernels: its counts are returned and the wrappers'
+    counters are as before."""
+    counted = (M.mc_frame, IT.intra_scan, TI.me_level, TI.mot_comp,
+               TI.mot_comp_uv)
+    n0 = [f.launches for f in counted]
 
     def run():
-        M.mc_frame.launches += 2
-        IT.intra_scan.launches += 3
+        for i, f in enumerate(counted):
+            f.launches += i + 2
         return "out"
 
     out, added = G.counted_capture(run)
-    assert out == "out" and added == [2, 3, 0, 0]
-    assert (M.mc_frame.launches, IT.intra_scan.launches) == n0
+    assert out == "out" and added == [2, 3, 0, 0, 4, 5, 6]
+    assert [f.launches for f in counted] == n0
 
 
 def test_cpu_decode_fills_the_cache_once_per_signature():

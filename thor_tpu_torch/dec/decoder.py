@@ -22,8 +22,10 @@ Two backends, as in thor_tpu dec/decoder.py:
         thor_tpu's THOR_FUSED=0 runs _staged_frame.
     The reference window (33 frames, codec-padded) stays on the device, and
     so does the interpolated reference of RA / HDB streams: it is
-    synthesized from two window frames (ops/interp.py) on the same stream,
-    just before the frame program that predicts from it.
+    synthesized from two window frames on the same stream, just before the
+    frame program that predicts from it; with fused=True as one CUDA graph
+    per (size, weights) signature (ops/interp_fused.py), with fused=False
+    stage by stage (ops/interp.py).
   - "numpy": thor_tpu's serial host loop (dec/decoder.py:176-219,
     :427-488), the exact host oracle: dec/reconstruct_np.py on host
     reference planes, the interpolated reference from the C copy
@@ -52,6 +54,7 @@ from ..codec.constants import (
 from ..device import resolve_device
 from ..native import lib, parse_frame, seqhdr_from_python
 from ..ops import interp, temporal_interp
+from ..ops.interp_fused import run_interp
 from . import fused as F
 from .inputs import build_frame_inputs
 from .native_adapter import native_parse_to_syntax
@@ -285,15 +288,19 @@ class Decoder:
     def _make_interp_frame(self, fh):
         """Synthesize the interpolated reference of frame `fh`. On the
         torch backend it is queued on the current stream (the host waits
-        for nothing); on the numpy backend the C copy makes it on the
-        host."""
+        for nothing): with fused a replay of its signature's graph
+        (ops/interp_fused.run_interp), else the stages one by one; on the
+        numpy backend the C copy makes it on the host."""
         dfn = fh.display_frame_num
         if self.backend == "numpy":
             self.interp_frame = NpRefFrame(
                 *temporal_interp.interpolate_frames(*self.interp_pair(fh)),
                 dfn)
             return
-        out = interp.interpolate_frames(*self.interp_pair(fh))
+        if self.fused:
+            out = run_interp(self.device, *self.interp_pair(fh))
+        else:
+            out = interp.interpolate_frames(*self.interp_pair(fh))
         self.interp_frame = RefFrame(out[3], out[4], out[5], dfn)
 
     def _parse_python(self, payload, pos, nums):

@@ -35,11 +35,15 @@ CUDA graph:
 
 The entries, their buffers and the reference stacks are shared by
 every decoder of the process: one thread dispatches frames to a device at
-a time (the Decoder's main thread). The sharded decoder, whose slots
-dispatch on several streams at once, stays on the eager path. The graph
-machinery (capture, replay, the cache and its pools, the launch counts)
-lives in ops/graphs.py, which the device encoder's P/B programs
-(enc/fused.py) share.
+a time (the Decoder's main thread). The interpolated reference an RA /
+HDB frame predicts from is one more graph, replayed just before the
+frame's (ops/interp_fused.py, keyed by size and weights, not folded into
+the frame signature). The sharded decoder, whose slots dispatch on
+several streams at once, stays on the eager path. The graph machinery
+(capture, replay, the cache and its pools, the launch counts) lives in
+ops/graphs.py, whose cache also holds the interpolation entries and the
+device encoder's P/B and I-frame programs (enc/fused.py,
+enc/fused_intra.py).
 
 On the CPU there is no graph: the same entry runs the frame program on
 its buffers through the kernels' plain versions. A capture that fails
@@ -56,6 +60,7 @@ import torch
 
 from ..codec.constants import PAD_C, PAD_Y
 from ..ops.graphs import CACHE, GraphProgram, device as _device
+from ..ops.interp_fused import entries as interp_entries
 from .inputs import FrameConfig
 from .reconstruct import mc_luts, reconstruct_frame
 
@@ -260,11 +265,13 @@ def _stacks(dev, cfg):
 
 
 def footprint(dev) -> dict:
-    """Device bytes the graphs hold on `dev` (the decoder's and the
-    encoder's: they share the cache and its pools): the shared pool's
-    segments (torch.cuda.memory_snapshot; the graphs' intermediates and
-    outputs, which max_memory_allocated does not see between replays),
-    the entries' input buffers and the decoder's reference stacks."""
+    """Device bytes the graphs hold on `dev` (the decoder's, the
+    interpolation's and the encoder's: they share the cache and its
+    pools): the shared pool's segments (torch.cuda.memory_snapshot; the
+    graphs' intermediates and outputs, which max_memory_allocated does not
+    see between replays), the entries' input buffers (of them the
+    interpolation entries' two references, "interp_input_bytes") and the
+    decoder's reference stacks."""
     dev = _device(dev)
     pid = CACHE.pools.get(dev)
     pool = 0 if pid is None else sum(
@@ -272,8 +279,11 @@ def footprint(dev) -> dict:
         if seg["device"] == dev.index
         and tuple(seg["segment_pool_id"]) == tuple(pid))
     mine = [e for (d, _), e in CACHE.entries.items() if d == dev]
+    interp = interp_entries(dev)
     return {"entries": len(mine), "pool_bytes": pool,
             "input_bytes": sum(e.input_bytes() for e in mine),
+            "interp_entries": len(interp),
+            "interp_input_bytes": sum(e.input_bytes() for e in interp),
             "stack_bytes": sum(t.numel() for (d, *_), ts in
                                _ref_stacks.items() if d == dev for t in ts)}
 

@@ -293,7 +293,9 @@ def encode_intra_frame_device(enc, w, org_y, org_u, org_v):
     unfiltered reconstruction (y, u, v) as int32 tensors on the device.
     Appends the host-clock seconds of search / scan / emit to
     enc.frame_times[-1]; each span ends where the host needs the device's
-    results anyway."""
+    results anyway. On an Encoder(record=True) it appends the frame's
+    record to enc.intra_record (enc/fused_intra.replay_intra_frame; the
+    filters add their side-info map and CLPF candidates)."""
     W, H = enc.width, enc.height
     p = enc.params
     dev = org_y.device
@@ -318,16 +320,35 @@ def encode_intra_frame_device(enc, w, org_y, org_u, org_v):
         torch.zeros((2, H // 2, W // 2), dtype=I32, device=dev),
         torch.stack([org_u, org_v]), torch.from_numpy(recs_c).to(dev), qpC,
         fast, True)
+    if enc.intra_record is not None:
+        enc.intra_record.append(
+            {"frame_num": enc.frame_num, "org": (org_y, org_u, org_v),
+             "fused": None, "H": H, "W": W, "qpY": qpY, "qpC": qpC,
+             "fast": fast, "nmodes": enc.num_intra_modes,
+             "lam": torch.tensor(enc.lambda_, dtype=torch.float32,
+                                 device=dev),
+             "recs": (torch.from_numpy(recs_y).to(dev),
+                      torch.from_numpy(recs_c).to(dev))})
     q16y = q16y[:, 0].cpu().numpy()
     q16u, q16v = (a for a in q16c.cpu().numpy().transpose(1, 0, 2, 3))
     t2 = time.perf_counter()
     times["scan"] = t2 - t1
     times["tus"] = len(tus)
+    emit_intra_frame(enc, w, tus, q16y, q16u, q16v)
+    times["emit"] = time.perf_counter() - t2
+    return y[0], uv[0], uv[1]
+
+
+def emit_intra_frame(enc, w, tus, q16y, q16u, q16v):
+    """The I frame's block syntax through the exact host writers, from the
+    walk's leaves `tus` and their fetched low-frequency levels ([N, 16,
+    16] numpy arrays, one row per leaf), filling enc.deblock_data as it
+    goes (the block contexts read it)."""
+    W, H = enc.width, enc.height
+    p = enc.params
     # the zero-run pass never clears a level, so "any level nonzero" is
     # the quantizer's cbp
     cbpy, cbpu, cbpv = ((q != 0).any(axis=(1, 2)) for q in (q16y, q16u, q16v))
-
-    # --- host syntax emission through the exact writers ---
     bidx = {(t[0], t[1], t[2]): i for i, t in enumerate(tus)}
 
     def emit(s, y0, x0):
@@ -374,5 +395,38 @@ def encode_intra_frame_device(enc, w, org_y, org_u, org_v):
     for k in range(0, H, 64):
         for l in range(0, W, 64):
             emit(64, k, l)
-    times["emit"] = time.perf_counter() - t2
-    return y[0], uv[0], uv[1]
+
+
+def leaf_owners(tus, W, H):
+    """[H/8, W/8] int32: the 1-based index in `tus` of the leaf that owns
+    each 8x8 cell (the walk's leaves cover a frame whose sides are
+    multiples of 8)."""
+    ty, tx, sz = (np.array([t[i] for t in tus], np.int32) for i in range(3))
+    own = np.zeros((H // 8, W // 8), np.int32)
+    for s in (8, 16, 32, 64):
+        on = sz == s
+        if not on.any():
+            continue
+        k = s // 8
+        grid = np.zeros((-(-H // s), -(-W // s)), np.int32)
+        grid[ty[on] // s, tx[on] // s] = np.nonzero(on)[0] + 1
+        grid = np.repeat(np.repeat(grid, k, 0), k, 1)[:H // 8, :W // 8]
+        own = np.where(grid > 0, grid, own)
+    return own
+
+
+def store_leaf_map(dd, tus):
+    """Fill the side-info map dd as the emit's store_deblock_data does,
+    from the walk's leaves alone, with every cbp set: the I-frame final
+    program (enc/fused_intra.py) deblocks on it before the emit runs, with
+    the cbp patched from its levels. An intra leaf's other fields are its
+    geometry's: its size, the intra mode, and 0 (no split, no vector).
+    Returns leaf_owners(tus, ...)."""
+    own8 = leaf_owners(tus, dd.width, dd.height)
+    dd.reset()
+    size8 = np.array([t[2] for t in tus], np.int32)[own8 - 1]
+    dd.size[:] = np.repeat(np.repeat(size8, 2, 0), 2, 1)
+    dd.mode[:] = MODE_INTRA
+    for a in (dd.cbp_y, dd.cbp_u, dd.cbp_v):
+        a[:] = 1
+    return own8

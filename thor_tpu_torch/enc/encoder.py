@@ -35,11 +35,13 @@ from ..codec.constants import (
 from ..device import resolve_device
 from ..ops import kernels as K
 from ..ops.interp import interpolate_frames
+from ..ops.interp_fused import run_interp
 from ..utils.checkpoint import load_encoder_state, save_encoder_state
 from .device_inter import (clpf_apply, clpf_cand_masks, clpf_sb_sums,
                            finish_inter_frame_device,
                            measure_inter_frame_device)
 from .device_intra import encode_intra_frame_device
+from .fused_intra import encode_intra_frame_fused
 from .host import HostMirror, HostRef
 
 I32 = torch.int32
@@ -259,23 +261,29 @@ class Encoder:
     default; "cpu" runs the kernels' plain versions). `frame_times` holds
     one dict per encoded frame: the host-clock seconds of its stages, each
     ending where the host waits for the device anyway (host mirror
-    frames: search, filters; device I frames: search, scan, emit,
-    filters, with the TU count "tus"; device P and B frames: measure (or,
+    frames: search, filters; device I frames: search, scan (with
+    fused=True the filters' device work too), emit, filters, with the TU
+    count "tus"; device P and B frames: measure (or,
     with fused=False, me, trials and intra_search), decide,
     second_chance, final, emit, filters, with the counts "pus" of the MC
     and "intra_leaves" of the intra scan). With record=True,
     `device_record` holds one record per device P/B frame, the inputs of
     its device work on the device, for
-    enc/device_inter.replay_device_frame.
+    enc/device_inter.replay_device_frame, and `intra_record` one per
+    device I frame, for enc/fused_intra.replay_intra_frame.
 
     fused=True (the default; thor_tpu's fused dispatch) runs a device P/B
     frame's device work as the three programs of enc/fused.py, one CUDA
     graph each per signature on a card: measure, the second chance's
     trials, and the final reconstruction with the in-loop filters, whose
     CLPF bits the host then writes from the fetched decision
-    (_filters_done, thor_tpu's _filters_done_on_device). A capture that
-    fails raises. fused=False runs the stages one by one
-    (enc/device_inter) and the filters in _filters."""
+    (_filters_done, thor_tpu's _filters_done_on_device); a device I frame
+    as the two programs of enc/fused_intra.py (the search; the scans with
+    the filters), its CLPF bits written the same way; and the
+    interpolated reference of RA configurations as one graph per
+    signature (ops/interp_fused.py). A capture that fails raises.
+    fused=False runs the stages one by one (enc/device_inter,
+    enc/device_intra, ops/interp) and the filters in _filters."""
 
     def __init__(self, params: EncoderParams, device=None,
                  record: bool = False, fused: bool = True):
@@ -330,6 +338,8 @@ class Encoder:
         # a fused P/B frame fetched them already (else None)
         self.rec_y = self.rec_u = self.rec_v = None
         self.rec_host = None
+        # a fused I frame's padded reference planes (else None)
+        self.rec_padded = None
         self.org_y = self.org_u = self.org_v = None
         self.mirror = HostMirror(self)
         # the GOP-parallel planner (parallel/encode.py) sets _defer_interp:
@@ -340,6 +350,7 @@ class Encoder:
         # enc/device_inter.replay_device_frame runs again; record_keys are
         # the references a record already holds or makes
         self.device_record = [] if record else None
+        self.intra_record = [] if record else None
         self.record_keys = set()
 
     def store_deblock_data(self, binfo):
@@ -367,7 +378,7 @@ class Encoder:
         encode_frame_finish)."""
         p = self.params
         self.deblock_data.reset()
-        self.rec_host = None
+        self.rec_host = self.rec_padded = None
         if self.frame_type == I_FRAME:
             lambda_coeff = p.lambda_coeffI
         elif self.frame_type == P_FRAME:
@@ -392,8 +403,16 @@ class Encoder:
         org = tuple(t.to(I32) for t in (self.org_y, self.org_u, self.org_v))
         # thor_tpu/enc/encoder.py:608-613; __init__'s size check covers
         # the rest of its rule
+        rec = None
         if p.device_encode and self.frame_type == I_FRAME:
+            if self.fused:
+                out = encode_intra_frame_fused(self, w, *org)
+                self._filters_done(w, out)
+                self.rec_padded = out["padded"]
+                return None
             y, u, v = encode_intra_frame_device(self, w, *org)
+            if self.intra_record is not None:
+                rec = self.intra_record[-1]
         elif p.device_encode and all(self.get_ref(i) is not None
                                      for i in range(self.num_ref)):
             return measure_inter_frame_device(self, *org)
@@ -402,7 +421,7 @@ class Encoder:
             y, u, v = (torch.from_numpy(a).to(self.device, I32)
                        for a in self.mirror.encode_frame(w))
             self.frame_times[-1]["search"] = time.perf_counter() - t0
-        self._filters(w, y, u, v, org[0])
+        self._filters(w, y, u, v, org[0], rec)
         return None
 
     def encode_frame_finish(self, w: BitWriter, ctx=None):
@@ -421,6 +440,8 @@ class Encoder:
             if rec is not None:
                 self.device_record.append(rec)
                 self.record_keys.add(("r", self.frame_num))
+        if ref is None and self.rec_padded is not None:
+            ref = RefFrame.of_padded(*self.rec_padded, self.frame_num)
         if ref is None:
             ref = RefFrame(self.rec_y, self.rec_u, self.rec_v,
                            self.frame_num)
@@ -471,11 +492,11 @@ class Encoder:
         self.frame_times[-1]["filters"] = time.perf_counter() - t0
 
     def _filters_done(self, w, out):
-        """The filters of a fused P/B frame ran in its final program
-        (enc/fused.py): write the CLPF bits from the fetched decision
-        out["bit_sb"] over the candidates of the emit's side-info map,
-        and take the filtered planes (rec_y / rec_u / rec_v on the device,
-        rec_host fetched)."""
+        """The filters of a fused frame ran in its final program
+        (enc/fused.py, enc/fused_intra.py): write the CLPF bits from the
+        fetched decision out["bit_sb"] over the candidates of the emit's
+        side-info map, and take the filtered planes (rec_y / rec_u /
+        rec_v on the device, rec_host fetched)."""
         t0 = time.perf_counter()
         if self.params.clpf:
             w.putbits(1, 1)
@@ -853,7 +874,9 @@ class Encoder:
         """The interpolated reference of a B frame, synthesized from window
         frames r1 and r2 on the encoder's device exactly as the decoder
         resynthesizes it (common/temporal_interp.c:972-1053; on a card the
-        ME and synthesis kernels of ops/interp).
+        ME and synthesis kernels of ops/interp): with fused, a replay of
+        its signature's graph (ops/interp_fused.run_interp), else stage by
+        stage.
 
         With _defer_interp set (the GOP-parallel planner), only the
         reference objects and the position are recorded, in
@@ -862,7 +885,9 @@ class Encoder:
         if self._defer_interp:
             self._pending_interp = (self.refs[r1], self.refs[r2], ratio, pos)
             return
-        out = interpolate_frames(self.refs[r1], self.refs[r2], ratio, pos)
+        synth = (lambda *a: run_interp(self.device, *a)) if self.fused \
+            else interpolate_frames
+        out = synth(self.refs[r1], self.refs[r2], ratio, pos)
         self.interp_frame = RefFrame.of_padded(out[3], out[4], out[5],
                                                self.frame_num)
         if not self.params.device_encode:

@@ -34,15 +34,19 @@ coefficients).
 Entries. One entry per measure signature (the device, the geometry, the
 reference count, the bipred slots, the filter set, tb split, speed, the
 intra mode count and the two QPs: the ops read them as Python numbers)
-lives in ops/graphs' CACHE beside the decoder's frame entries, sharing
-its graph pools and side streams. It holds the input buffers (the
-original planes, the reference stacks, one packed buffer of the signs and
-lambdas), the measure program, the extra program and up to FINALS final
-programs by their own signature (the filters, whether the second chance
-ran, and the layout of the final's packed inputs, which names the MC and
-intra buckets; an entry's buckets only grow, _bucket, so a sequence
-captures a new final only when a frame needs more records than any
-before it or a second chance for the first time). Every program reads
+lives in ops/graphs' CACHE beside the decoder's frame entries, the
+interpolated reference's entries (ops/interp_fused.py; an RA form's B
+frame replays one before its measure program) and the I frame's
+(enc/fused_intra.py, which reuses this module's fetch, buckets, final
+runner and filter tail), sharing their graph pools and side streams. It
+holds the input buffers (the original planes, the reference stacks, one
+packed buffer of the signs and lambdas), the measure program, the extra
+program and up to FINALS final programs by their own signature (the
+filters, whether the second chance ran, and the layout of the final's
+packed inputs, which names the MC and intra buckets; an entry's buckets
+only grow, _bucket, so a sequence captures a new final only when a frame
+needs more records than any before it or a second chance for the first
+time). Every program reads
 its inputs from the entry's buffers and its predecessors' outputs in
 place; every output lives until the same program runs again. Inputs
 cross from the host in one pinned buffer per program, copied on the
@@ -51,7 +55,9 @@ stream without a wait.
 On the CPU the same entries run their programs without a graph, through
 the kernels' plain versions. A capture that fails raises; nothing falls
 back to the eager path (enc/device_inter's stage-wise functions, which
-Encoder(fused=False) runs).
+Encoder(fused=False) runs, and which the sharded encoder's clones run:
+they dispatch on several streams at once, and a device's graphs share
+one pool whose replays run one at a time).
 """
 
 from __future__ import annotations
@@ -490,24 +496,33 @@ class EncEntry:
         """Load a frame's packed final inputs and run the final program
         of their signature (after run_measure and, with fsig.extra,
         run_extra of the same frame)."""
-        f = self.finals.get(fsig)
-        fresh = f is None
+        return run_final_of(self, fsig, buf, final_program)
+
+
+def run_final_of(e, fsig, buf, program):
+    """Load packed final inputs `buf` into entry e's final program of
+    signature fsig (made at its first use, at most FINALS kept, the least
+    recently used going first) and run program(e, final) there. A final
+    whose first run fails leaves the entry again."""
+    f = e.finals.get(fsig)
+    fresh = f is None
+    if fresh:
+        f = e.finals[fsig] = _Final(fsig, e.dev)
+        while len(e.finals) > FINALS:
+            _, old = e.finals.popitem(last=False)
+            if old.graph is not None:
+                torch.cuda.current_stream(e.dev).synchronize()
+            G.STATS["evictions"] += 1
+    else:
+        e.finals.move_to_end(fsig)
+    try:
+        f.flat.copy_(buf, non_blocking=True)
+        pool = G.CACHE.pool(e.dev) if e.dev.type == "cuda" else None
+        return f.run(e.dev, pool, lambda: program(e, f))
+    except BaseException:
         if fresh:
-            f = self.finals[fsig] = _Final(fsig, self.dev)
-            while len(self.finals) > FINALS:
-                _, old = self.finals.popitem(last=False)
-                if old.graph is not None:
-                    torch.cuda.current_stream(self.dev).synchronize()
-                G.STATS["evictions"] += 1
-        else:
-            self.finals.move_to_end(fsig)
-        try:
-            f.flat.copy_(buf, non_blocking=True)
-            return self._run(f, lambda: final_program(self, f))
-        except BaseException:
-            if fresh:
-                self.finals.pop(fsig, None)
-            raise
+            e.finals.pop(fsig, None)
+        raise
 
 
 def run_measure(dev, sig, org, refs, small):

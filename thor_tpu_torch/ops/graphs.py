@@ -1,5 +1,8 @@
-"""CUDA graphs shared by the decoder's frame program (dec/fused.py) and
-the device encoder's P/B programs (enc/fused.py).
+"""CUDA graphs shared by the programs of both codecs: the decoder's frame
+program (dec/fused.py), the interpolated reference of RA / HDB streams
+(ops/interp_fused.py: the decoder's and the encoder's), and the device
+encoder's P/B programs (enc/fused.py) and I-frame programs
+(enc/fused_intra.py).
 
 A program is captured once per signature as a torch.cuda.CUDAGraph and
 replayed on the current stream after that. Its warm-up runs on a side
@@ -12,11 +15,15 @@ run one at a time on one stream, and a replay's outputs are read or
 cloned before the next one. On the CPU there is no graph: a program just
 runs. A capture that fails raises.
 
-The kernels of COUNTED (kernels 1 and 2 of the decoder, and the
-encoder's kernel 6 and zero-run pass) count their launches where their
-wrappers launch them. Under a capture they launch nothing, so a program
-keeps the counts its capture added, takes them back, and adds them at
-every replay (the warm-up before a capture runs on the card and counts
+The sharded decoder and encoder (parallel/stream.py, parallel/encode.py)
+stay on the eager stages: their slots dispatch on several streams at
+once, and the replays of a device's shared pool run one at a time.
+
+The kernels of COUNTED (kernels 1 and 2 of the decoder, the three
+interpolation kernels, and the encoder's kernel 6 and zero-run pass)
+count their launches where their wrappers launch them. Under a capture
+they launch nothing, so a program keeps the counts its capture added,
+takes them back, and adds them at every replay (the warm-up before a capture runs on the card and counts
 as it runs). STATS counts the captures (and their host milliseconds,
 warm-up included), the replays and the entries evicted.
 """
@@ -29,12 +36,14 @@ from collections import OrderedDict
 import torch
 
 from .enc_intra import encode_scan
+from .interp import me_level, mot_comp, mot_comp_uv
 from .intra import intra_scan
 from .kernels import rdoq_light
 from .mc import mc_frame
 
 MAXSIZE = 256       # _jit_fused's lru_cache bound
-COUNTED = (mc_frame, intra_scan, encode_scan, rdoq_light)
+COUNTED = (mc_frame, intra_scan, encode_scan, rdoq_light, me_level, mot_comp,
+           mot_comp_uv)
 
 STATS = {"captures": 0, "capture_ms": 0.0, "replays": 0, "evictions": 0}
 

@@ -15,7 +15,10 @@ another slot is handed over by parallel/mesh.Made (rules (a), (d)): an
 event wait and record_stream on the same card, a copy to another card.
 The interpolated reference of a B frame is synthesized by ops/interp on
 the clone's slot once both its references are made (thor_tpu uses its
-host C twin in a one-worker pool). The host mirror (device_encode=0)
+host C twin in a one-worker pool), stage by stage like the rest of a
+clone's frame: the clones dispatch on several streams at once, and the
+CUDA graphs of the fused path (ops/graphs) share one pool per device,
+whose replays run one at a time. The host mirror (device_encode=0)
 codes a frame whole in encode_frame_begin and is drained at once; since
 it keeps state across frames (its ME candidates and its reconstruction
 buffer), its frames run one at a time on the master's mirror.

@@ -15,8 +15,9 @@ Where it differs from thor_tpu's:
 - a frame's program is queued on its own slot as it is, so nothing pads a
   level to one common batch (see parallel/mesh.py);
 - the interpolated reference of an RA / HDB frame is synthesized on the
-  frame's tile-0 slot by ops/interp (kernels 3-5), as the port's Decoder
-  makes it, not on the host;
+  frame's tile-0 slot by ops/interp (kernels 3-5), as the port's
+  Decoder(fused=False) makes it, not on the host; like the frame
+  program it stays on the eager stages (no CUDA graph: ops/graphs);
 - references stay on the device between levels; only yielded frames are
   copied to the host, into pinned memory (in a multi-process run, a
   level's frames are gathered on every host);
@@ -225,7 +226,10 @@ class ShardedDecoder:
 
         def interp_made(ent, slot):
             """The interpolated reference of a frame, synthesized on its
-            slot (offsets as dec/decoder.Decoder.interp_pair)."""
+            slot (offsets as dec/decoder.Decoder.interp_pair) stage by
+            stage: the slots dispatch on several streams at once, and the
+            graphs of ops/interp_fused share one pool per device, whose
+            replays run one at a time."""
             r1, r2 = ent['interp_pair']
             dfn = ent['nf'].hdr.display_frame_num
             off1 = r2.frame_num - dfn

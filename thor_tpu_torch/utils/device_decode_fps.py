@@ -9,10 +9,12 @@ and keeps, per frame, its inputs staged on the device, the reference
 planes it reads and, on a frame that predicts from an interpolated
 reference, the arguments of ops/interp.interpolate_frames. Then every
 frame is dispatched again back to back as the Decoder dispatches it:
-interpolate_frames where the frame needs it (kernels 3-5), then the frame
-program (kernels 1 and 2): by default dec/fused.run_frame (the packed
-inputs, bucketed, copied into the frame signature's CUDA graph, which is
-replayed; the first pass captures every signature), with --eager
+the interpolated reference where the frame needs it (kernels 3-5), then
+the frame program (kernels 1 and 2): by default
+ops/interp_fused.run_interp and dec/fused.run_frame (the references and
+the packed inputs, bucketed, copied into the CUDA graphs of their
+signatures, which are replayed; the first pass captures every
+signature), with --eager ops/interp.interpolate_frames and
 dec/reconstruct.reconstruct_frame; one wait for the device at the end.
 The host's parse, input build and output copies are out of the clock:
 the number is what the card sustains when the host keeps up.
@@ -48,6 +50,7 @@ from ..dec.reconstruct import mc_luts, reconstruct_frame, to_device
 from ..device import resolve_device, synchronize
 from ..native import parse_frame, seqhdr_from_python
 from ..ops import graphs as G, interp
+from ..ops.interp_fused import run_interp, signature
 from .tracing import host_waits
 
 TESTDATA = Path(__file__).resolve().parents[2] / "testdata"
@@ -96,14 +99,17 @@ def capture(path, dev, fused=True):
 
 def dispatch(f, luts):
     """Queue one captured frame: its interpolated reference (kernels 3-5)
-    where it needs one, then its frame program (a graph replay for a
-    PackedFrame). Returns reconstruct_frame's (planes, padded planes)."""
+    where it needs one, then its frame program (graph replays of both for
+    a PackedFrame). Returns reconstruct_frame's (planes, padded
+    planes)."""
     refs = f["refs"]
+    fused = isinstance(f["inp"], F.PackedFrame)
     if f["interp"] is not None:
-        out = interp.interpolate_frames(*f["interp"])
+        out = run_interp(f["inp"].buf.device, *f["interp"]) if fused \
+            else interp.interpolate_frames(*f["interp"])
         ir = RefFrame(out[3], out[4], out[5], f["dfn"])
         refs = [ir if r is None else r for r in refs]
-    if isinstance(f["inp"], F.PackedFrame):
+    if fused:
         return F.run_frame(f["inp"].buf.device, f["inp"], refs)
     return reconstruct_frame(f["cfg"], f["inp"], refs, luts)
 
@@ -125,8 +131,8 @@ def measure(path=DEFAULT, reps=3, device=None, fused=True):
     frames, the seconds of each timed repeat, device_fps (frames over the
     best repeat), the host waits per frame and their sites; with `fused`
     the frame signatures and the captures the first pass made (with their
-    host ms). Raises when the last repeat's planes differ from the
-    golden."""
+    host ms, and the interpolated reference's signatures). Raises when
+    the last repeat's planes differ from the golden."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -162,6 +168,9 @@ def measure(path=DEFAULT, reps=3, device=None, fused=True):
             "golden": kind, "device": str(dev), "fused": fused,
             "signatures": len({f["inp"].sig for f in work}) if fused
             else None,
+            "interp_signatures": len({signature(*f["interp"])[0]
+                                      for f in work if f["interp"]})
+            if fused else None,
             "captures": G.STATS["captures"] - stats0["captures"],
             "capture_ms": G.STATS["capture_ms"] - stats0["capture_ms"]}
 

@@ -1,4 +1,5 @@
-"""Device-only encode throughput of the device encoder's P and B frames.
+"""Device-only encode throughput of the device encoder's P and B frames,
+and of its I frames.
 
     python -m thor_tpu_torch.utils.device_encode_fps [--frames N]
         [--reps N] [--device cpu] [--path fused|eager|both]
@@ -25,8 +26,14 @@ The calls that make the host wait for the card are counted
 during the live encode (per P/B frame, with their sites); the live
 encode's graph captures (signatures) and their host ms come from
 ops/graphs.STATS. --path both (the default) runs the fused path, then the
-stage-wise one (fused=False), each encoded and replayed. Prints one JSON
-object.
+stage-wise one (fused=False), each encoded and replayed. The I frames
+are timed and replayed on their own ("intra": enc/fused_intra
+.replay_intra_frame over the records of Encoder(record=True), the two
+programs of enc/fused_intra.py on the fused path, the search, the scans
+and the filters stage by stage on the other; gated like the P/B frames),
+with their host waits and their "search" and "scan" + "filters" stage ms
+(on the fused path the final program holds the filters). Prints one
+JSON object.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 from ..device import resolve_device, synchronize
 from ..enc.device_inter import replay_device_frame
 from ..enc.encoder import Encoder, EncoderParams, crop_yuv_frames
+from ..enc.fused_intra import replay_intra_frame
 from ..ops import graphs as G
 from .tracing import host_waits
 
@@ -56,23 +64,12 @@ LDB_1080 = dict(width=1920, height=1080, qp=32, device_encode=1,
                 deblocking=1, clpf=1, use_block_contexts=1)
 
 
-def replay(enc, recons, reps=3):
-    """Replay the records of a recorded encode (`enc`, whose sequence
-    returned `recons` in display order) back to back `reps` times after
-    one untimed run that counts the host waits. Returns a dict: frames,
-    the seconds of each timed run, device_fps (frames over the best run),
-    the host waits per frame and their sites. Raises when a frame of the
-    last run differs from the live reconstruction."""
-    records = enc.device_record
-    if not records:
-        raise ValueError("the encode recorded no P or B frame")
+def _replayed(records, recons, run, reps):
+    """Run `run()` (each record's frame again, [(frame_num, planes)]) back
+    to back `reps` times after one untimed run that counts the host waits;
+    the dict of replay(). Raises when a frame of the last run differs from
+    the live reconstruction."""
     dev = records[0]["org"][0].device
-
-    def run():
-        refstate = {}
-        return [(rec["frame_num"], replay_device_frame(rec, refstate))
-                for rec in records]
-
     with host_waits(dev) as sites:
         run()
     synchronize(dev)
@@ -94,6 +91,37 @@ def replay(enc, recons, reps=3):
             "host_waits_per_frame": sum(sites.values()) / n,
             "host_wait_sites": {f"{a}:{b}": c for (a, b), c in
                                 sorted(sites.items())}}
+
+
+def replay(enc, recons, reps=3):
+    """Replay the records of a recorded encode (`enc`, whose sequence
+    returned `recons` in display order) back to back `reps` times after
+    one untimed run that counts the host waits. Returns a dict: frames,
+    the seconds of each timed run, device_fps (frames over the best run),
+    the host waits per frame and their sites. Raises when a frame of the
+    last run differs from the live reconstruction."""
+    records = enc.device_record
+    if not records:
+        raise ValueError("the encode recorded no P or B frame")
+
+    def run():
+        refstate = {}
+        return [(rec["frame_num"], replay_device_frame(rec, refstate))
+                for rec in records]
+
+    return _replayed(records, recons, run, reps)
+
+
+def replay_intra(enc, recons, reps=3):
+    """replay() for the I frames of a recorded encode (enc.intra_record):
+    each frame's device work again, its reconstruction gated on the live
+    one."""
+    records = enc.intra_record
+    if not records:
+        raise ValueError("the encode recorded no device I frame")
+    return _replayed(records, recons, lambda: [
+        (rec["frame_num"], replay_intra_frame(rec)) for rec in records],
+        reps)
 
 
 class WaitCounted(Encoder):
@@ -134,12 +162,34 @@ def live_counts(enc):
                 enc.frame_times[i].get("capture", 0.0) * 1e3 for i in pb]}
 
 
+def intra_counts(enc):
+    """The device I frames of a WaitCounted encode: their count, the host
+    waits a frame (mean) with their sites (summed), and the mean ms of
+    "search" and of "scan" + "filters" (Encoder.frame_times)."""
+    ii = [i for i, ft in enumerate(enc.frame_times) if "tus" in ft]
+    n = max(len(ii), 1)
+    sites = {}
+    for i in ii:
+        for (a, b), c in enc.waits[i].items():
+            sites[f"{a}:{b}"] = sites.get(f"{a}:{b}", 0) + c
+    ft = [enc.frame_times[i] for i in ii]
+    return {"i_frames": len(ii),
+            "live_host_waits_per_i_frame": sum(
+                sum(enc.waits[i].values()) for i in ii) / n,
+            "live_host_wait_sites": dict(sorted(sites.items())),
+            "search_ms": sum(t["search"] for t in ft) * 1e3 / n,
+            "scan_filters_ms": sum(t["scan"] + t["filters"]
+                                   for t in ft) * 1e3 / n,
+            "emit_ms": sum(t["emit"] for t in ft) * 1e3 / n}
+
+
 def measure(frames, fields, reps=3, device=None, out_path=os.devnull,
             fused=True):
     """Encode `frames` with EncoderParams.in_code(**fields), record=True
     and `fused` (the live encode's wall seconds in "encode_seconds", its
     host waits and captures by live_counts, the graph captures and their
-    host ms over the encode), then replay(): its dict."""
+    host ms over the encode), then replay(): its dict, with "intra":
+    intra_counts() and replay_intra()."""
     dev = resolve_device(device)
     enc = WaitCounted(EncoderParams.in_code(num_frames=len(frames),
                                             **fields),
@@ -153,7 +203,9 @@ def measure(frames, fields, reps=3, device=None, out_path=os.devnull,
             **live_counts(enc),
             "captures": G.STATS["captures"] - s0["captures"],
             "capture_ms": G.STATS["capture_ms"] - s0["capture_ms"],
-            **replay(enc, recons, reps), "device": str(dev)}
+            **replay(enc, recons, reps), "device": str(dev),
+            "intra": {**intra_counts(enc),
+                      **replay_intra(enc, recons, reps)}}
 
 
 def main(argv=None):

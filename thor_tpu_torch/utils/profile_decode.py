@@ -11,7 +11,12 @@ interpolated references. Decodes the stream once to warm up, then:
   - decodes it again under torch.profiler (CPU + CUDA activities) and
     sums device time by kernel, grouped into the port's CUDA kernels,
     host<->device copies and PyTorch's own kernels (residual, filters,
-    padding), against the decode's wall time.
+    padding), against the decode's wall time, with the host calls that
+    queued work a frame;
+  - on a stream with interpolated references, the host calls of one
+    interpolated reference, warm, through its CUDA graph
+    (ops/interp_fused.run_interp, the Decoder's path) and stage by stage
+    (ops/interp.interpolate_frames).
 Prints one JSON object. Needs a CUDA device.
 """
 
@@ -130,10 +135,33 @@ def profile_run(run):
 
 
 def device_profile(path, dev):
-    """(frames, wall ms of one decode, device ms by group, top kernels)."""
-    n, wall, groups, top, _, _ = profile_run(
+    """(frames, wall ms of one decode, device ms by group, top kernels,
+    host launch calls)."""
+    n, wall, groups, top, _, calls = profile_run(
         lambda: sum(1 for _ in Decoder(device=dev).decode_stream(path)))
-    return n, wall, groups, top
+    return n, wall, groups, top, calls
+
+
+def interp_launch_calls(path, dev):
+    """{"fused": host launch calls of the stream's first interpolated
+    reference through its graph (the copy in, the replay, the copy out),
+    "eager": those of interpolate_frames}, warm; None for a stream with no
+    interpolated reference, or for a decoder without that graph
+    (tools/ab_decode.py runs this module on another tree's decoder)."""
+    from ..ops.interp import interpolate_frames
+    from .device_decode_fps import capture
+    try:
+        from ..ops.interp_fused import run_interp
+    except ImportError:
+        return None
+    work, _ = capture(path, dev)
+    args = next((f["interp"] for f in work if f["interp"]), None)
+    if args is None:
+        return None
+    interpolate_frames(*args)
+    torch.cuda.synchronize()
+    return {"fused": profile_run(lambda: run_interp(dev, *args))[5],
+            "eager": profile_run(lambda: interpolate_frames(*args))[5]}
 
 
 def main(argv=None):
@@ -146,10 +174,12 @@ def main(argv=None):
     dev = torch.device("cuda", torch.cuda.current_device())
     sum(1 for _ in Decoder(device=dev).decode_stream(args.stream))  # warm
     host = host_stages(args.stream)
-    n, wall, groups, top = device_profile(args.stream, dev)
+    n, wall, groups, top, calls = device_profile(args.stream, dev)
     busy = sum(groups.values())
     out = {"stream": args.stream, "card": torch.cuda.get_device_name(0),
            "host": host, "profiled_frames": n, "wall_ms": wall,
+           "launch_calls_per_frame": calls / n,
+           "interp_launch_calls": interp_launch_calls(args.stream, dev),
            "device_ms_by_group": groups, "device_busy_ms": busy,
            "device_idle_share": max(0.0, 1 - busy / wall),
            "top_kernels_ms_count_name": top}

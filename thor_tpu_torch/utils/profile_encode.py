@@ -6,7 +6,11 @@
 Encodes the top-left 1920x1080 crop of testdata/test_4k.yuv (QP 32,
 deblocking, CLPF, block contexts). By default every frame is an I frame
 (10 intra modes): three frames on the host clock for the stage times
-(Encoder.frame_times), then one frame under torch.profiler. With --pb the
+(Encoder.frame_times), then one frame under torch.profiler, on the fused
+path (Encoder(fused=True): enc/fused_intra.py's two CUDA graphs) and
+then, in a second round, stage by stage (fused=False), each round with
+its host waits an I frame by file:line and its search and scan +
+filters ms (utils/device_encode_fps.intra_counts). With --pb the
 sequence is the low-delay B form of LDB_PB below (I P P P, two references
 from frame 2, bipred, encoder_speed 0): four frames on the host clock,
 then the same four again with each frame under a profiler of its own, and
@@ -14,7 +18,8 @@ the last P frame's profile is the one reported; the P frames run on the
 fused path (Encoder(fused=True), enc/fused.py's CUDA graphs) and then,
 in a second round, stage by stage (fused=False), each round with its
 host waits a P frame by file:line (utils/tracing.host_waits) and its
-graph captures and their host ms; --eager runs the second round only. A
+graph captures and their host ms, and the I frame's profile beside the
+P frame's ("i_frame"); --eager runs the second round only. A
 profile holds the device time by kernel, grouped into the port's
 kernels, host<->device copies and PyTorch's own kernels, the number of
 kernel launches, the host calls that queued work (a graph replay is
@@ -35,7 +40,7 @@ import torch
 
 from ..enc.encoder import Encoder, EncoderParams, crop_yuv_frames
 from ..ops import graphs as G
-from .device_encode_fps import WaitCounted, live_counts
+from .device_encode_fps import WaitCounted, intra_counts, live_counts
 from .profile_decode import profile_run
 
 INPUT = ("testdata/test_4k.yuv", 3840, 2160)
@@ -84,7 +89,7 @@ def main(argv=None):
     ap.add_argument("--pb", action="store_true",
                     help="the LDB-form I P P P encode, profiling a P frame")
     ap.add_argument("--eager", action="store_true",
-                    help="with --pb: the stage-wise round only")
+                    help="the stage-wise round only")
     ap.add_argument("--json", default=None, help="also write the result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -94,8 +99,7 @@ def main(argv=None):
     frames = crop_frames(n)
     out = {"card": torch.cuda.get_device_name(0),
            "form": "LDB I P P P" if args.pb else "all-intra"}
-    rounds = ((False,) if args.eager else (True, False)) if args.pb \
-        else (True,)
+    rounds = (False,) if args.eager else (True, False)
     with tempfile.TemporaryDirectory() as tmp:
         out_path = str(Path(tmp) / "o.bit")
         Encoder(params(1, form)).encode_sequence(frames[:1], out_path)  # warm
@@ -110,6 +114,7 @@ def main(argv=None):
                     {k: (v * 1e3 if isinstance(v, float) else v)
                      for k, v in t.items()} for t in enc.frame_times],
                  **live_counts(enc),
+                 "intra": intra_counts(enc),
                  "captures": G.STATS["captures"] - s0["captures"],
                  "capture_ms": G.STATS["capture_ms"] - s0["capture_ms"],
                  "profiled_frame": len(prof.profiles) - 1,
@@ -118,9 +123,8 @@ def main(argv=None):
                      p[4] for p in prof.profiles],
                  **summary(*prof.profiles[-1])}
             if args.pb:
-                out["fused" if fused else "eager"] = r
-            else:
-                out.update(r)
+                r["i_frame"] = summary(*prof.profiles[0])
+            out["fused" if fused else "eager"] = r
     s = json.dumps(out)
     if args.json:
         with open(args.json, "w") as f:
