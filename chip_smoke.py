@@ -75,7 +75,9 @@ Phases (any failure exits nonzero):
      Then the host mirror encoder (device_encode=0: the block search in
      numpy on the host, the filters and references on the card): the four
      thor_tpu mirror streams (testdata/torch_enc_host_*.bit: all-intra
-     CIF, LDB QCIF and CIF, RA QCIF) byte for byte, each with the counters
+     CIF with intra RDO, RDOQ and delta QP, a minute of host numpy that
+     runs in a process of its own beside the others; LDB QCIF and CIF, RA
+     QCIF) byte for byte, each with the counters
      set to 0 just before and read just after (kernels 3-5 on the RA one,
      no other kernel, no plain call) and decoded back to the encoder's
      reconstruction through kernels 1-5 (counted the same way); the
@@ -84,21 +86,32 @@ Phases (any failure exits nonzero):
      encode (host_ldb_qcif) and a device encode (ldb_qcif) split at a
      checkpoint after frame 1 and resumed, equal to their goldens. Then
      the parallel paths (thor_tpu_torch/parallel), slots as streams of the
-     one card: ShardedDecoder on the 1080p RA16 stream at meshes 1x1, 2x1,
-     4x1, 2x2 and 1x4, each equal to its sha256 with thor_tpu's dependency
+     one card, on CUDA graphs, one lane per slot (fused, the default):
+     ShardedDecoder on the 1080p RA16 stream at meshes 1x1, 2x1, 4x1, 2x2
+     and 1x4, cold, each equal to its sha256 with thor_tpu's dependency
      levels (testdata/torch_levels.json) and the counters around it
-     (kernels 1-5, no plain call), with fps beside the Decoder's in the
-     same rounds; the 1080p LDB stream at 1x2 and 1x4; the 4x1 decode and
-     a Decoder decode under torch.profiler (device busy and idle share,
-     the ms in which kernels of two or more streams overlap, launches);
-     RA16_long through `python -m thor_tpu_torch.dec --mesh 4x2` (sha256,
-     a level of 8); kernels 1 and 3 each on two streams at once, 20 times,
-     against their plain versions; two gloo processes of
-     parallel/worker.py on the card (DIST_OK); ShardedEncoder on two
-     streams: ldb_qcif and ra_qcif byte for byte, and a 5-frame 1080p RA
-     form (I P B B B) equal to the sequential Encoder's bytes in the same
-     call, with both encodes' seconds and stage times, decoded back to
-     its reconstruction;
+     (kernels 1-5, no plain call, the captures on its lanes); a warm pass
+     at tile 1 launching what the Decoder's warm decode launches, with no
+     capture; fps fused and eager beside the Decoder's fused and eager
+     (1x1 and 4x1 three rounds each, the other meshes once); one warm
+     decode each at 1x1, 4x1 and 1x4, fused and eager, and a Decoder
+     decode under torch.profiler and the sync debug mode (host launch
+     calls and host waits a frame; at 4x1 and for the Decoder the device
+     busy and idle share and the ms in which kernels of two or more
+     streams overlap); each mesh's lanes
+     (signatures, captures, capture ms, pool, inputs, stacks); the 1080p
+     LDB stream at 1x2 and 1x4; RA16_long through `python -m
+     thor_tpu_torch.dec --mesh 4x2` (sha256, a level of 8); kernels 1 and
+     3 each on two streams at once, 20 times, eagerly and as graphs on
+     two lanes, against their plain versions; two Decoders in two threads
+     (both 1080p streams) and a Decoder with an Encoder (ra_qcif),
+     checked exactly; two gloo processes of parallel/worker.py on the
+     card (DIST_OK); ShardedEncoder fused on two streams: ldb_qcif and
+     ra_qcif byte for byte, and a 5-frame 1080p RA form (I P B B B) cold
+     and warm against the sequential fused Encoder cold and warm in the
+     same call (equal bytes and reconstructions; seconds, stage times,
+     captures and footprint by lane), decoded back to its
+     reconstruction;
      Then the measuring tools (thor_tpu_torch/utils): the device-only
      decode replay (device_decode_fps) of both 1080p streams, every frame's
      inputs staged on the card and re-dispatched back to back, one wait a
@@ -2082,64 +2095,115 @@ def split_and_resume(name, out_dir):
         raise AssertionError(f"{name}: the resumed stream differs")
 
 
+# the mirror golden whose host search takes a minute (one CIF I frame with
+# intra RDO, RDOQ and delta QP): it runs in a process of its own, beside the
+# other mirror encodes
+MIRROR_BESIDE = "host_intra_cif"
+
+
+def mirror_case(name, dev, card, out_dir):
+    """One thor_tpu mirror golden on the card, byte for byte, with every
+    counter read around the encode and around its decode gate; the stage
+    times of every frame (and the CIF P-frame fps). Returns the encode's
+    launches by kernel."""
+    from thor_tpu_torch.enc.encoder import Encoder
+    from tools.gen_torch_enc_goldens import golden_path, load_frames
+    fields, fr = load_frames(name)
+    got = out_dir / f"enc_{name}.bit"
+    zero_counters()     # the interpolation runs between frames
+    enc = Encoder(enc_params(fields))
+    t0 = time.perf_counter()
+    recons = enc.encode_sequence(fr, str(got))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_counters()
+    same = got.read_bytes() == golden_path(name).read_bytes()
+    interp = bool(fields.get("interp_ref"))
+    log(f"[slice] host mirror {name}: {got.stat().st_size} bytes "
+        f"{'equal' if same else 'DIFFER FROM'} thor_tpu's "
+        f"{golden_path(name).name}; {len(recons)} frames in {wall:.2f} s "
+        f"(the whole call); launches {launches}; plain calls "
+        f"{sum(plain.values())}; card {card}")
+    for i, ft in enumerate(enc.frame_times):
+        log(f"[slice] host mirror {name}, coded frame {i}: search "
+            f"{ft['search']:.3f} s (host numpy), filters "
+            f"{ft['filters'] * 1e3:.2f} ms (device; each stage ends in "
+            f"a wait for the device)")
+    if name == "host_ldb_cif":
+        fps = [1.0 / (ft["search"] + ft["filters"])
+               for ft in enc.frame_times]
+        mean = len(fps) / sum(1 / x for x in fps)
+        log(f"[slice] host mirror CIF fps={mean:.4f} over the "
+            f"{len(fps)} frames (I frame {fps[0]:.4f}, P frames "
+            f"{', '.join(f'{x:.4f}' for x in fps[1:])}: one reference, "
+            f"then two with bipred; host clock, search + filters); "
+            f"card {card}")
+    if not same or any(plain.values()) \
+            or any(launches[k] for k in launches if k not in SYNTH) \
+            or interp != all(launches[k] for k in SYNTH):
+        raise AssertionError(f"{name}: the mirror's stream differs from "
+                             "thor_tpu's, or its kernels are not the "
+                             "synthesis' alone, on RA only")
+    must = ("intra_scan",) + (("mc_frame",) if len(recons) > 1 else ()) \
+        + (SYNTH if interp else ())
+    counted_gate(got, recons, dev, f"host mirror {name} stream", must)
+    return launches
+
+
+def mirror_main(name, out_dir):
+    """python3 chip_smoke.py --mirror NAME DIR: mirror_case(NAME) on the
+    card, its stream under DIR; its lines, then its launches as JSON."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(HERE))
+    import thor_tpu_torch  # noqa: F401  (fails outside a repo checkout)
+    launches = mirror_case(name, torch.device("cuda"),
+                           torch.cuda.get_device_name(0), Path(out_dir))
+    print(json.dumps(launches), flush=True)
+    return 0
+
+
 def phase_encode_host(dev, card, out_dir):
     """The host mirror encoder: the block search in numpy on the host, the
     filters, the reference window and the interpolated reference on the
-    card. Each thor_tpu mirror golden byte for byte, with every counter
-    read around each encode (the RA case synthesizes its interpolated
-    references through kernels 3-5) and around its decode gate; the
-    stage times of every frame, the CIF P-frame fps, one profiled CIF
-    frame; a split and resumed encode of the mirror and of the device
-    encoder. Returns the launches over the four mirror encodes by
-    kernel."""
+    card. Each thor_tpu mirror golden (mirror_case; MIRROR_BESIDE in a
+    process of its own, started first); one profiled CIF frame; a split
+    and resumed encode of the mirror and of the device encoder. Returns
+    the launches over the mirror encodes by kernel."""
     from thor_tpu_torch.enc.encoder import Encoder
     from thor_tpu_torch.utils.profile_decode import profile_run
     from tools.gen_torch_enc_goldens import CASES, golden_path, load_frames
 
     t_phase = time.perf_counter()
-    total = {}
-    for name in [n for n, c in CASES.items() if not c[2]["device_encode"]]:
-        fields, fr = load_frames(name)
-        got = out_dir / f"enc_{name}.bit"
-        zero_counters()     # the interpolation runs between frames
-        enc = Encoder(enc_params(fields))
-        t0 = time.perf_counter()
-        recons = enc.encode_sequence(fr, str(got))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, plain = read_counters()
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
-        same = got.read_bytes() == golden_path(name).read_bytes()
-        interp = bool(fields.get("interp_ref"))
-        log(f"[slice] host mirror {name}: {got.stat().st_size} bytes "
-            f"{'equal' if same else 'DIFFER FROM'} thor_tpu's "
-            f"{golden_path(name).name}; {len(recons)} frames in {wall:.2f} s "
-            f"(the whole call); launches {launches}; plain calls "
-            f"{sum(plain.values())}; card {card}")
-        for i, ft in enumerate(enc.frame_times):
-            log(f"[slice] host mirror {name}, coded frame {i}: search "
-                f"{ft['search']:.3f} s (host numpy), filters "
-                f"{ft['filters'] * 1e3:.2f} ms (device; each stage ends in "
-                f"a wait for the device)")
-        if name == "host_ldb_cif":
-            fps = [1.0 / (ft["search"] + ft["filters"])
-                   for ft in enc.frame_times]
-            mean = len(fps) / sum(1 / x for x in fps)
-            log(f"[slice] host mirror CIF fps={mean:.4f} over the "
-                f"{len(fps)} frames (I frame {fps[0]:.4f}, P frames "
-                f"{', '.join(f'{x:.4f}' for x in fps[1:])}: one reference, "
-                f"then two with bipred; host clock, search + filters); "
-                f"card {card}")
-        if not same or any(plain.values()) \
-                or any(launches[k] for k in launches if k not in SYNTH) \
-                or interp != all(launches[k] for k in SYNTH):
-            raise AssertionError(f"{name}: the mirror's stream differs from "
-                                 "thor_tpu's, or its kernels are not the "
-                                 "synthesis' alone, on RA only")
-        must = ("intra_scan",) + (("mc_frame",) if len(recons) > 1 else ()) \
-            + (SYNTH if interp else ())
-        counted_gate(got, recons, dev, f"host mirror {name} stream", must)
+    beside = subprocess.Popen(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--mirror",
+         MIRROR_BESIDE, str(out_dir)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=str(HERE))
+    try:
+        total = {}
+        for name in [n for n, c in CASES.items()
+                     if not c[2]["device_encode"] and n != MIRROR_BESIDE]:
+            for k, v in mirror_case(name, dev, card, out_dir).items():
+                total[k] = total.get(k, 0) + v
+        out = beside.communicate(timeout=600)[0]
+    finally:
+        if beside.poll() is None:
+            beside.kill()
+            beside.wait()
+    lines = out.strip().splitlines()
+    got = [line for line in lines if line.startswith("{")]
+    for line in lines:
+        if not line.startswith("{"):
+            log(line)
+    if beside.returncode != 0 or len(got) != 1:
+        raise AssertionError(f"the mirror's {MIRROR_BESIDE} failed in its "
+                             f"process:\n{out[-3000:]}")
+    for k, v in json.loads(got[0]).items():
+        total[k] = total.get(k, 0) + v
+    log(f"[slice] host mirror {MIRROR_BESIDE}: in a process of its own "
+        f"beside the other mirror encodes, joined "
+        f"{time.perf_counter() - t_phase:.1f} s into the phase; card {card}")
 
     # one CIF P frame (frame 1 of host_ldb_cif) under torch.profiler
     class OneProfiled(Encoder):
@@ -2180,23 +2244,82 @@ def phase_encode_host(dev, card, out_dir):
 # ---------------------------------------------------------------------------
 
 SHARDED_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2), (1, 4))
+AB_MESHES = ((1, 1), (4, 1))            # fused and eager, FPS_REPEATS each
+CALL_MESHES = ((1, 1), (4, 1), (1, 4))  # host launch calls and waits a frame
 DEC_KERNELS = ("mc_frame", "intra_scan") + SYNTH
 ENC_KERNELS = ("mc_frame", "encode_scan") + SYNTH
 RA_FORM = dict(width=1920, height=1080, num_frames=5, qp=32, device_encode=1,
                max_num_ref=2, enable_bipred=1, num_reorder_pics=3,
                interp_ref=1, use_block_contexts=1, encoder_speed=0)
+_MESHES = {}
 
 
 def golden_sha(path):
     return path.with_name(path.stem + "_dec.sha256").read_text().split()[0]
 
 
-def sharded_decode(path, gop, tile):
+def mesh_of(gop, tile):
+    """The one mesh of each shape in this run: its slots' streams are its
+    lanes (ops/graphs), so a later decode on it replays the graphs an
+    earlier one captured."""
+    from thor_tpu_torch.parallel.mesh import make_decode_mesh
+    if (gop, tile) not in _MESHES:
+        _MESHES[gop, tile] = make_decode_mesh(gop=gop, tile=tile)
+    return _MESHES[gop, tile]
+
+
+def slot_lanes(slots):
+    """The lanes (ops/graphs) of `slots`, in order."""
+    from thor_tpu_torch.ops import graphs as G
+    out = []
+    for s in slots:
+        with s.active():
+            out.append(G.lane(s.device))
+    return out
+
+
+def mesh_lanes(gop, tile):
+    return slot_lanes([s for row in mesh_of(gop, tile).slots for s in row])
+
+
+def lane_captures(lanes):
+    return (sum(ln.captures for ln in lanes),
+            sum(ln.capture_ms for ln in lanes))
+
+
+def lane_report(what, lanes, card):
+    """Per lane: its signatures by program, captures, capture ms, replays
+    and the bytes of dec/fused.lane_footprint (its pool, its entries'
+    inputs, its reference stacks); logged and returned."""
+    from thor_tpu_torch.dec import fused as F
+    from thor_tpu_torch.ops import graphs as G
+    rows = []
+    for ln in lanes:
+        kinds = {}
+        for e in G.CACHE.of_lane(ln):
+            kinds[type(e).__name__] = kinds.get(type(e).__name__, 0) + 1
+        fp = F.lane_footprint(ln)
+        rows.append({"lane": f"stream {ln.key[1]}", "signatures": kinds,
+                     "captures": ln.captures,
+                     "capture_ms": round(ln.capture_ms, 1),
+                     "replays": ln.replays,
+                     "pool_MB": round(fp["pool_bytes"] / 1e6, 1),
+                     "input_MB": round(fp["input_bytes"] / 1e6, 2),
+                     "stack_MB": round(fp["stack_bytes"] / 1e6, 2)})
+    log(f"[parallel] {what}, by lane (signatures a lane holds by program, "
+        f"its captures and their host ms with the warm-ups, replays, "
+        f"graph pool, input buffers, reference stacks): "
+        + json.dumps(rows) + f"; card {card}")
+    return rows
+
+
+def sharded_decode(path, gop, tile, fused=True):
     """(frames, sha256, level sizes) of one ShardedDecoder decode on the
-    card (gop x tile slots as streams of the one card); fails if an MC
-    window left the padded plane."""
+    card (the gop x tile mesh of this run, streams of the one card;
+    fused: CUDA graphs on the slots' lanes, else the eager stages); fails
+    if an MC window left the padded plane."""
     from thor_tpu_torch.parallel.stream import ShardedDecoder
-    sd = ShardedDecoder(gop=gop, tile=tile)
+    sd = ShardedDecoder(mesh_of(gop, tile), fused=fused)
     h = hashlib.sha256()
     n = 0
     for planes in sd.iter_frames(str(path)):
@@ -2209,31 +2332,39 @@ def sharded_decode(path, gop, tile):
     return n, h.hexdigest(), list(sd.last_level_sizes)
 
 
-def counted_sharded(path, gop, tile, must, levels, card):
+def counted_sharded(path, gop, tile, must, levels, card, fused=True,
+                    what="cold"):
     """One sharded decode with every counter set to 0 just before and read
     just after: the golden's sha256, thor_tpu's level sizes, the kernels in
-    `must` launched and no plain version called. Returns the launches."""
+    `must` launched and no plain version called. Returns (the launches,
+    the captures the decode made on the mesh's lanes)."""
+    lanes = mesh_lanes(gop, tile)
+    c0, ms0 = lane_captures(lanes)
     zero_counters()
-    n, sha, lv = sharded_decode(path, gop, tile)
+    n, sha, lv = sharded_decode(path, gop, tile, fused)
     launches, plain = read_counters()
+    c1, ms1 = lane_captures(lanes)
     ok = (sha == golden_sha(path) and lv == levels[path.stem]
           and all(launches[k] for k in must) and not any(plain.values()))
     log(f"[parallel] {path.name} mesh {gop}x{tile} ({gop * tile} streams on "
-        f"one card): {n} frames sha256 {'matches' if ok else 'DIFFERS'}; "
-        f"levels {lv} (thor_tpu: {levels[path.stem]}); launches {launches}; "
-        f"plain calls {sum(plain.values())}; card {card}")
+        f"one card), {'fused' if fused else 'eager'} {what}: {n} frames "
+        f"sha256 {'matches' if ok else 'DIFFERS'}; levels {lv} (thor_tpu: "
+        f"{levels[path.stem]}); launches {launches} (the captures' "
+        f"warm-ups included); plain calls {sum(plain.values())}; "
+        f"{c1 - c0} captures in {ms1 - ms0:.1f} ms on its {len(lanes)} "
+        f"lanes; card {card}")
     if not ok:
         raise AssertionError(f"{path.name} at {gop}x{tile}: golden, levels "
                              f"or kernels {must} wrong")
-    return launches
+    return launches, c1 - c0
 
 
-def timed_sharded(path, gop, tile):
+def timed_sharded(path, gop, tile, fused=True):
     """fps of one warm sharded decode, host clock ending in
     torch.cuda.synchronize(), the sha256 checked."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n, sha, _ = sharded_decode(path, gop, tile)
+    n, sha, _ = sharded_decode(path, gop, tile, fused)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if sha != golden_sha(path):
@@ -2241,15 +2372,46 @@ def timed_sharded(path, gop, tile):
     return n / dt
 
 
-def timed_decoder(path, dev):
+def timed_decoder(path, dev, fused=True):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n, sha, _ = decode(path, dev)
+    n, sha, _ = decode(path, dev, fused)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if sha != golden_sha(path):
         raise AssertionError(f"timed decode of {path.name} differs")
     return n / dt
+
+
+def profiled(run, dev, trace=None):
+    """One warm run of run() (which returns (frames, sha256)) under
+    torch.profiler (CPU + CUDA) and torch.cuda's sync debug mode: {sha,
+    wall ms, host launch calls a frame (utils/profile_decode's
+    LAUNCH_CALLS: a graph replay is one), host waits a frame
+    (utils/tracing.host_waits) and their sites}; with `trace` (a path)
+    also stream_overlap's device busy ms, idle %, overlap ms, kernels and
+    streams from the chrome trace written there."""
+    from torch.profiler import ProfilerActivity, profile
+    from thor_tpu_torch.utils.profile_decode import LAUNCH_CALLS
+    from thor_tpu_torch.utils.tracing import host_waits
+    with host_waits(dev) as sites:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            n, sha = run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    calls = sum(e.count for e in prof.key_averages()
+                if e.key.startswith(LAUNCH_CALLS))
+    out = {"sha": sha, "wall_ms": wall, "calls": calls / n,
+           "waits": sum(sites.values()) / n,
+           "sites": {f"{f}:{ln}": c for (f, ln), c in sites.items()}}
+    if trace is not None:
+        prof.export_chrome_trace(str(trace))
+        busy, overlap, kernels, streams = stream_overlap(trace)
+        out.update(busy_ms=busy, idle_pct=max(0.0, 1 - busy / wall) * 100,
+                   overlap_ms=overlap, kernels=kernels, streams=streams)
+    return out
 
 
 def stream_overlap(trace_path):
@@ -2291,41 +2453,14 @@ def stream_overlap(trace_path):
     return busy / 1e3, overlap / 1e3, launches, len(by_stream)
 
 
-def profiled_sharded(out_dir, levels, dev, card):
-    """One 4x1 RA16 decode under torch.profiler (CPU + CUDA), and one
-    Decoder decode counted the same way: device busy and idle share, the
-    ms in which kernels of two or more streams overlap, the launches."""
-    from torch.profiler import ProfilerActivity, profile
-    runs = (("ShardedDecoder 4x1",
-             lambda: sharded_decode(STREAM_RA_1080, 4, 1)[1:]),
-            ("Decoder", lambda: (decode(STREAM_RA_1080, dev)[1],
-                                 levels[STREAM_RA_1080.stem])))
-    for what, run in runs:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            sha, lv = run()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        trace = out_dir / "profile.json"
-        prof.export_chrome_trace(str(trace))
-        busy, overlap, launches, streams = stream_overlap(trace)
-        log(f"[parallel] {STREAM_RA_1080.name} {what} under torch.profiler: "
-            f"wall {wall:.1f} ms, device busy {busy:.3f} ms, idle "
-            f"{max(0.0, 1 - busy / wall) * 100:.2f} %; kernels of two or "
-            f"more streams overlap for {overlap:.3f} ms "
-            f"({overlap / busy * 100:.2f} % of busy); {launches} kernel "
-            f"launches on {streams} streams; card {card}")
-        if sha != golden_sha(STREAM_RA_1080) or \
-                lv != levels[STREAM_RA_1080.stem]:
-            raise AssertionError(f"the profiled {what} decode differs")
-
-
 def two_wavefronts(dev, card, repeats=20):
     """Kernels 1 (the 1080p I frame's Y and U+V records) and 3 (level 0 of
     the first interpolated 1080p frame) each on two streams at once,
-    `repeats` times; every result equals the plain version."""
+    `repeats` times, called eagerly, then as CUDA graphs captured on two
+    lanes (ops/graphs: each its own pool, so each its own ticket scratch)
+    and replayed at once; every result equals the plain version."""
     from thor_tpu_torch.dec.reconstruct import residual_planes
+    from thor_tpu_torch.ops import graphs as G
     from thor_tpu_torch.ops import interp as TI
     from thor_tpu_torch.ops import intra as IT
 
@@ -2346,29 +2481,105 @@ def two_wavefronts(dev, card, repeats=20):
             "me_level": (lambda k: TI.me_level(*a0, **kw0),
                          [TI.me_level_plain(*a0, **kw0)] * 2)}
     streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+
+    def same(o, v):
+        return all(torch.equal(g, w) for g, w in zip(
+            o if isinstance(o, tuple) else (o,),
+            v if isinstance(v, tuple) else (v,)))
+
     for kname, (run, want) in jobs.items():
-        t0 = time.perf_counter()
-        equal = 0
-        for _ in range(repeats):
-            ready = torch.cuda.Event()
-            ready.record()
-            outs = []
-            for k, s in enumerate(streams):
-                s.wait_event(ready)
-                with torch.cuda.stream(s):
-                    outs.append(run(k))
-            torch.cuda.synchronize()
-            equal += all(
-                all(torch.equal(g, w) for g, w in zip(
-                    o if isinstance(o, tuple) else (o,),
-                    v if isinstance(v, tuple) else (v,)))
-                for o, v in zip(outs, want))
-        log(f"[parallel] {kname} on two streams at once "
-            f"({'Y and U+V of the 1080p I frame' if kname == 'intra_scan' else 'level 0 of the first interpolated 1080p frame, twice'}):"
-            f" {equal} of {repeats} equal to the plain version "
-            f"({time.perf_counter() - t0:.2f} s host clock); card {card}")
-        if equal != repeats:
-            raise AssertionError(f"{kname}: two at once differ from plain")
+        for mode in ("eager", "graphs"):
+            progs = []
+            if mode == "graphs":
+                for k, s in enumerate(streams):
+                    with torch.cuda.stream(s):
+                        ln = G.lane(dev)
+                        p = G.GraphProgram()
+                        p.run(ln, lambda k=k: run(k))
+                        progs.append((ln, p))
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            equal = 0
+            for _ in range(repeats):
+                ready = torch.cuda.Event()
+                ready.record()
+                outs = []
+                for k, s in enumerate(streams):
+                    s.wait_event(ready)
+                    with torch.cuda.stream(s):
+                        outs.append(run(k) if mode == "eager"
+                                    else progs[k][1].replay_graph(
+                                        progs[k][0]))
+                torch.cuda.synchronize()
+                equal += all(same(o, v) for o, v in zip(outs, want))
+            log(f"[parallel] {kname} on two streams at once, {mode} "
+                f"({'Y and U+V of the 1080p I frame' if kname == 'intra_scan' else 'level 0 of the first interpolated 1080p frame, twice'}"
+                f"{'; one graph on each of two lanes' if progs else ''}):"
+                f" {equal} of {repeats} equal to the plain version "
+                f"({time.perf_counter() - t0:.2f} s host clock); card {card}")
+            if equal != repeats:
+                raise AssertionError(f"{kname}: two at once ({mode}) differ "
+                                     "from plain")
+
+
+def in_threads(jobs):
+    """Run each job in a thread of its own, started together: their
+    results; the first error raises."""
+    import threading
+    out, errors = [None] * len(jobs), []
+    start = threading.Barrier(len(jobs))
+
+    def run(k):
+        try:
+            start.wait()
+            out[k] = jobs[k]()
+        except BaseException as e:      # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(k,))
+               for k in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def two_threads(dev, card, out_dir):
+    """Graph users of one card in two threads at once (ops/graphs: one
+    lane, the card's default stream; its lock keeps each frame's load,
+    replay and clone whole): two Decoders (the two 1080p streams), then
+    a Decoder (RA16 1080p) with an Encoder (ra_qcif); every output checked
+    exactly."""
+    from thor_tpu_torch.enc.encoder import Encoder
+    from tools.gen_torch_enc_goldens import golden_path, load_frames
+    t0 = time.perf_counter()
+    want = [golden_sha(STREAM_1080), golden_sha(STREAM_RA_1080)]
+    got = in_threads([lambda: decode(STREAM_1080, dev)[1],
+                      lambda: decode(STREAM_RA_1080, dev)[1]])
+    log(f"[parallel] two Decoders in two threads on one card "
+        f"({STREAM_1080.name}, {STREAM_RA_1080.name}): "
+        f"{'both sha256s match' if got == want else 'DIFFER: ' + str(got)}"
+        f"; card {card}")
+    if got != want:
+        raise AssertionError("two Decoders in two threads differ")
+    fields, fr = load_frames("ra_qcif")
+    out = out_dir / "thread_ra_qcif.bit"
+    got = in_threads([lambda: decode(STREAM_RA_1080, dev)[1],
+                      lambda: Encoder(enc_params(fields)).encode_sequence(
+                          fr, str(out))])
+    ok = got[0] == want[1] and \
+        out.read_bytes() == golden_path("ra_qcif").read_bytes()
+    log(f"[parallel] a Decoder ({STREAM_RA_1080.name}) and an Encoder "
+        f"(ra_qcif) in two threads on one card: "
+        f"{'the sha256 and thor_tpu bytes match' if ok else 'DIFFER'} "
+        f"({time.perf_counter() - t0:.1f} s for the two rounds); card "
+        f"{card}")
+    if not ok:
+        raise AssertionError("a Decoder and an Encoder in two threads "
+                             "differ")
 
 
 def two_processes(card):
@@ -2404,11 +2615,14 @@ def two_processes(card):
                              + "\n".join(o[-2000:] for o in outs))
 
 
-def sharded_encode(params, frames, out, slots=2):
-    """(reconstructions, seconds, ShardedEncoder) of one encode on `slots`
-    streams of the card."""
+def sharded_encode(params, frames, out, slots=2, reuse=None):
+    """(reconstructions, seconds, ShardedEncoder) of one fused encode on
+    `slots` streams of the card; reuse: an earlier ShardedEncoder whose
+    slots (so lanes, so graphs) this one takes."""
     from thor_tpu_torch.parallel.encode import ShardedEncoder
     se = ShardedEncoder(params, devices=["cuda:0"] * slots)
+    if reuse is not None:
+        se.slots = reuse.slots
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rec = se.encode_sequence(frames, str(out))
@@ -2416,47 +2630,201 @@ def sharded_encode(params, frames, out, slots=2):
     return rec, time.perf_counter() - t0, se
 
 
-def phase_parallel(dev, card, out_dir):
-    """The parallel paths on the one card. Returns the launches of the 4x1
-    RA16 decode and of the 1080p RA-form sharded encode by kernel."""
+def timed_encoder(params, frames, out):
+    """(reconstructions, seconds, Encoder) of one sequential fused
+    encode."""
     from thor_tpu_torch.enc.encoder import Encoder
+    enc = Encoder(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = enc.encode_sequence(frames, str(out))
+    torch.cuda.synchronize()
+    return rec, time.perf_counter() - t0, enc
+
+
+def stage_line(e):
+    return "; ".join(f"{i}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ft.items() if isinstance(v, float))
+        for i, ft in enumerate(e.frame_times))
+
+
+def phase_sharded_decode(dev, card, out_dir, levels):
+    """The RA16 1080p sharded decode fused at every mesh (cold, with the
+    gates), warm at tile 1 against the Decoder's launches, fps fused and
+    eager beside the Decoder's, host launch calls and waits a frame, the
+    4x1 profile, the lanes. Returns the launches of the cold fused 4x1
+    decode and the numbers it logged."""
+    t_phase = time.perf_counter()
+    res = {"cold_captures": {}}
+    launches_ra = {}
+    for m in SHARDED_MESHES:
+        launches_ra[m], res["cold_captures"][m] = counted_sharded(
+            STREAM_RA_1080, *m, DEC_KERNELS, levels, card)
+    # the Decoder's warm launches (its second counted decode) against a
+    # warm fused pass at tile 1 (no capture: the cold pass made them all)
+    counted_decode(STREAM_RA_1080, dev, DEC_KERNELS)
+    _, _, launches_dec = counted_decode(STREAM_RA_1080, dev, DEC_KERNELS)
+    for m in SHARDED_MESHES:
+        if m[1] != 1:
+            continue
+        warm, caps = counted_sharded(STREAM_RA_1080, *m, DEC_KERNELS,
+                                     levels, card, what="warm")
+        if warm != launches_dec or caps:
+            raise AssertionError(f"a warm fused {m[0]}x{m[1]} decode "
+                                 f"launched {warm} with {caps} captures "
+                                 f"against the Decoder's {launches_dec}")
+    fps = {}
+    for _ in range(FPS_REPEATS):
+        for fused in (True, False):
+            fps.setdefault(("Decoder", fused), []).append(
+                timed_decoder(STREAM_RA_1080, dev, fused))
+            for m in AB_MESHES:
+                fps.setdefault((m, fused), []).append(
+                    timed_sharded(STREAM_RA_1080, *m, fused))
+    for m in SHARDED_MESHES:
+        for fused in (True, False):
+            if (m, fused) not in fps:
+                fps[m, fused] = [timed_sharded(STREAM_RA_1080, *m, fused)]
+    res["fps"] = {}
+    for (k, fused), v in fps.items():
+        med = sorted(v)[len(v) // 2]
+        what = "Decoder (native route, pipelined)" if k == "Decoder" \
+            else f"ShardedDecoder {k[0]}x{k[1]}"
+        mode = "fused" if fused else "eager"
+        res["fps"][f"{'Decoder' if k == 'Decoder' else '%dx%d' % k} {mode}"] \
+            = v
+        log(f"[parallel] {STREAM_RA_1080.name} {what} {mode}: fps={med:.3f} "
+            f"({len(v)} warm decodes: {', '.join(f'{x:.3f}' for x in v)}; "
+            f"host clock, each ends in torch.cuda.synchronize()); card "
+            f"{card}")
+    # one warm profiled decode each: host launch calls and waits a frame,
+    # and at 4x1 (and for the Decoder) the streams' overlap and idle share
+    res["profile"] = {}
+    runs = [(f"ShardedDecoder {m[0]}x{m[1]} {'fused' if f else 'eager'}",
+             m == (4, 1), lambda m=m, f=f: sharded_decode(STREAM_RA_1080, *m,
+                                                         f)[:2])
+            for m in CALL_MESHES for f in (True, False)]
+    runs.append(("Decoder fused", True,
+                 lambda: decode(STREAM_RA_1080, dev)[:2]))
+    for what, traced, run in runs:
+        r = res["profile"][what] = profiled(
+            run, dev, out_dir / "profile.json" if traced else None)
+        if r["sha"] != golden_sha(STREAM_RA_1080):
+            raise AssertionError(f"the profiled {what} decode differs")
+        line = (f"[parallel] {STREAM_RA_1080.name} {what}, warm, under "
+                f"torch.profiler: {r['calls']:.1f} host launch calls a frame "
+                f"(kernel launches, graph launches, copies, memsets), "
+                f"{r['waits']:.2f} host waits a frame at {r['sites']}")
+        if traced:
+            line += (f"; wall {r['wall_ms']:.1f} ms, device busy "
+                     f"{r['busy_ms']:.3f} ms, idle {r['idle_pct']:.2f} %; "
+                     f"kernels of two or more streams overlap for "
+                     f"{r['overlap_ms']:.3f} ms ({r['overlap_ms'] / r['busy_ms'] * 100:.2f} % of "
+                     f"busy); {r['kernels']} kernels run on {r['streams']} "
+                     f"streams")
+        log(line + f"; card {card}")
+    res["lanes"] = {m: lane_report(f"RA16 1080p mesh {m[0]}x{m[1]}",
+                                   mesh_lanes(*m), card)
+                    for m in SHARDED_MESHES}
+    log(f"[parallel] sharded RA16 decodes: {time.perf_counter() - t_phase:.1f}"
+        f" s (host clock)")
+    return launches_ra[4, 1], res
+
+
+def phase_sharded_encode(dev, card, out_dir):
+    """ShardedEncoder fused on two streams: ldb_qcif and ra_qcif against
+    thor_tpu's bytes; the 1080p RA form cold and warm against the
+    sequential fused Encoder cold and warm. Returns the launches of the
+    cold 1080p RA-form sharded encode."""
+    from thor_tpu_torch.ops import graphs as G
     from tools.gen_torch_enc_goldens import golden_path, load_frames
+    t_phase = time.perf_counter()
+    for name in ("ldb_qcif", "ra_qcif"):
+        fields, fr = load_frames(name)
+        zero_counters()
+        _, dt, se = sharded_encode(enc_params(fields), fr,
+                                   out_dir / f"par_{name}.bit")
+        launches, plain = read_counters()
+        must = ("mc_frame", "encode_scan") + (SYNTH if name == "ra_qcif"
+                                              else ())
+        same = (out_dir / f"par_{name}.bit").read_bytes() == \
+            golden_path(name).read_bytes()
+        log(f"[parallel] ShardedEncoder fused (2 streams) {name}: "
+            f"{'equal to' if same else 'DIFFERS FROM'} "
+            f"{golden_path(name).name}; {dt:.2f} s cold; launches "
+            f"{launches}; plain calls {sum(plain.values())}; captures by "
+            f"lane {[ln.captures for ln in slot_lanes(se.slots)]}")
+        if not same or not all(launches[k] for k in must) \
+                or any(plain.values()):
+            raise AssertionError(f"ShardedEncoder {name} failed")
+
+    fr = frames_1080(RA_FORM["num_frames"])
+    runs = {}
+    ln0 = G.lane(dev)
+    c0 = ln0.captures
+    runs["Encoder cold"] = timed_encoder(enc_params(RA_FORM), fr,
+                                         out_dir / "ra_form_seq.bit")
+    seq_caps = ln0.captures - c0
+    runs["Encoder warm"] = timed_encoder(enc_params(RA_FORM), fr,
+                                         out_dir / "ra_form_seq2.bit")
+    zero_counters()
+    runs["ShardedEncoder cold"] = sharded_encode(
+        enc_params(RA_FORM), fr, out_dir / "ra_form.bit")
+    launches_enc, plain = read_counters()
+    se = runs["ShardedEncoder cold"][2]
+    lanes = slot_lanes(se.slots)
+    cold_caps = [(ln.captures, round(ln.capture_ms, 1)) for ln in lanes]
+    runs["ShardedEncoder warm"] = sharded_encode(
+        enc_params(RA_FORM), fr, out_dir / "ra_form2.bit", reuse=se)
+    warm_caps = [ln.captures for ln in lanes]
+    seq_bytes = (out_dir / "ra_form_seq.bit").read_bytes()
+    rec_seq = runs["Encoder cold"][0]
+    same = all((out_dir / f).read_bytes() == seq_bytes for f in (
+        "ra_form_seq2.bit", "ra_form.bit", "ra_form2.bit")) and all(
+        len(r[0]) == len(rec_seq) == 5 and all(
+            np.array_equal(a, b) for x, y in zip(r[0], rec_seq)
+            for a, b in zip(x, y)) for r in runs.values())
+    for what, (_, t, e) in runs.items():
+        e = getattr(e, "enc", e)
+        log(f"[parallel] 1080p RA-form encode, {what} (fused): {t:.3f} s "
+            f"for 5 frames ({5 / t:.4f} fps, host clock); stages (s) by "
+            f"coded frame: {stage_line(e)}")
+    log(f"[parallel] 1080p RA-form: the sequential Encoder's cold pass "
+        f"captured {seq_caps} graphs on its lane; the ShardedEncoder's "
+        f"(2 streams) (captures, capture ms) by lane cold {cold_caps}, "
+        f"captures by lane after its warm pass {warm_caps}; "
+        f"{len(seq_bytes)} bytes, "
+        f"{'all four streams and reconstructions equal' if same else 'DIFFER'}"
+        f"; launches of the cold sharded encode {launches_enc}; plain calls "
+        f"{sum(plain.values())}; card {card}")
+    lane_report("1080p RA-form ShardedEncoder (2 streams)", lanes, card)
+    if not same or not all(launches_enc[k] for k in ENC_KERNELS) \
+            or any(plain.values()):
+        raise AssertionError("the 1080p RA-form ShardedEncoder differs from "
+                             "the Encoder or missed its kernels")
+    decode_equals(out_dir / "ra_form.bit", runs["ShardedEncoder cold"][0],
+                  dev, "1080p RA-form sharded encode")
+    log(f"[parallel] sharded encodes: {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock)")
+    return launches_enc
+
+
+def phase_parallel(dev, card, out_dir):
+    """The parallel paths on the one card, on CUDA graphs (fused, the
+    default) beside the eager stages. Returns the launches of the cold
+    fused 4x1 RA16 decode and of the 1080p RA-form sharded encode by
+    kernel."""
     from tools.gen_torch_levels import load_levels
 
     t_phase = time.perf_counter()
     levels = load_levels()
-    launches_ra = {}
-    for gop, tile in SHARDED_MESHES:
-        launches_ra[gop, tile] = counted_sharded(STREAM_RA_1080, gop, tile,
-                                                 DEC_KERNELS, levels, card)
-    # tile 1 is reconstruct_frame: the Decoder's launches, on any gop
-    _, _, launches_dec = counted_decode(STREAM_RA_1080, dev, DEC_KERNELS)
-    if not launches_ra[1, 1] == launches_ra[2, 1] == launches_ra[4, 1] \
-            == launches_dec:
-        raise AssertionError("a tile-1 sharded decode launched other "
-                             "kernels than the Decoder")
-    fps = {"Decoder": []}
-    for _ in range(FPS_REPEATS):
-        fps["Decoder"].append(timed_decoder(STREAM_RA_1080, dev))
-        for m in ((1, 1), (4, 1)):
-            fps.setdefault(m, []).append(timed_sharded(STREAM_RA_1080, *m))
-    for m in SHARDED_MESHES:
-        if m not in fps:
-            fps[m] = [timed_sharded(STREAM_RA_1080, *m)]
-    for k, v in fps.items():
-        med = sorted(v)[len(v) // 2]
-        what = "Decoder (native route, pipelined)" if k == "Decoder" \
-            else f"ShardedDecoder {k[0]}x{k[1]}"
-        log(f"[parallel] {STREAM_RA_1080.name} {what}: fps={med:.3f} "
-            f"({len(v)} warm decodes: {', '.join(f'{x:.3f}' for x in v)}; "
-            f"host clock, each ends in torch.cuda.synchronize()); card "
-            f"{card}")
+    launches_ra, _ = phase_sharded_decode(dev, card, out_dir, levels)
     for m in ((1, 2), (1, 4)):
         counted_sharded(STREAM_1080, *m, ("mc_frame", "intra_scan"), levels,
                         card)
-    profiled_sharded(out_dir, levels, dev, card)
+    lane_report("LDB 1080p mesh 1x4", mesh_lanes(1, 4), card)
 
-    # RA16_long at 4x2 (8 streams) through the CLI
+    # RA16_long at 4x2 (8 streams) through the CLI, fused by default
     out = out_dir / "ra16_long.yuv"
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "thor_tpu_torch.dec",
@@ -2471,70 +2839,21 @@ def phase_parallel(dev, card, out_dir):
           == (TESTDATA / "RA16_long_dec.sha256").read_text().split()[0]
           and lv == levels["RA16_long"] and max(lv) >= 8)
     log(f"[parallel] RA16_long via `python -m thor_tpu_torch.dec --mesh "
-        f"4x2`: {line!r}; output {'matches' if ok else 'DIFFERS FROM'} its "
-        f"sha256; widest level {max(lv) if lv else None} "
-        f"({time.perf_counter() - t0:.1f} s with start-up); card {card}")
+        f"4x2` (fused, cold): {line!r}; output "
+        f"{'matches' if ok else 'DIFFERS FROM'} its sha256; widest level "
+        f"{max(lv) if lv else None} ({time.perf_counter() - t0:.1f} s with "
+        f"start-up); card {card}")
     if not ok:
         raise AssertionError(f"RA16_long --mesh 4x2 failed:\n{r.stdout}\n"
                              f"{r.stderr[-3000:]}")
 
     two_wavefronts(dev, card)
+    two_threads(dev, card, out_dir)
     two_processes(card)
-
-    # ShardedEncoder on two streams: the thor_tpu streams byte for byte
-    for name in ("ldb_qcif", "ra_qcif"):
-        fields, fr = load_frames(name)
-        zero_counters()
-        _, dt, _ = sharded_encode(enc_params(fields), fr,
-                                  out_dir / f"par_{name}.bit")
-        launches, plain = read_counters()
-        must = ("mc_frame", "encode_scan") + (SYNTH if name == "ra_qcif"
-                                              else ())
-        same = (out_dir / f"par_{name}.bit").read_bytes() == \
-            golden_path(name).read_bytes()
-        log(f"[parallel] ShardedEncoder (2 streams) {name}: "
-            f"{'equal to' if same else 'DIFFERS FROM'} "
-            f"{golden_path(name).name}; {dt:.2f} s; launches {launches}; "
-            f"plain calls {sum(plain.values())}")
-        if not same or not all(launches[k] for k in must) \
-                or any(plain.values()):
-            raise AssertionError(f"ShardedEncoder {name} failed")
-
-    # the 1080p RA form: sequential Encoder, then ShardedEncoder
-    fr = frames_1080(RA_FORM["num_frames"])
-    seq_out, par_out = out_dir / "ra_form_seq.bit", out_dir / "ra_form.bit"
-    enc = Encoder(enc_params(RA_FORM))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rec_seq = enc.encode_sequence(fr, str(seq_out))
-    torch.cuda.synchronize()
-    dt_seq = time.perf_counter() - t0
-    zero_counters()
-    rec, dt, se = sharded_encode(enc_params(RA_FORM), fr, par_out)
-    launches_enc, plain = read_counters()
-    same = seq_out.read_bytes() == par_out.read_bytes() and all(
-        np.array_equal(a, b) for x, y in zip(rec, rec_seq)
-        for a, b in zip(x, y)) and len(rec) == len(rec_seq) == 5
-    for what, e, t in (("Encoder", enc, dt_seq), ("ShardedEncoder", se.enc,
-                                                  dt)):
-        log(f"[parallel] 1080p RA-form encode, {what}: {t:.3f} s for 5 "
-            f"frames ({5 / t:.4f} fps, host clock); stages (s) by coded "
-            f"frame: " + "; ".join(
-                f"{i}: " + ", ".join(f"{k} {v:.3f}" for k, v in ft.items()
-                                     if isinstance(v, float))
-                for i, ft in enumerate(e.frame_times)))
-    log(f"[parallel] 1080p RA-form ShardedEncoder (2 streams): "
-        f"{par_out.stat().st_size} bytes {'equal to' if same else 'DIFFER FROM'}"
-        f" the sequential Encoder's; launches {launches_enc}; plain calls "
-        f"{sum(plain.values())}; card {card}")
-    if not same or not all(launches_enc[k] for k in ENC_KERNELS) \
-            or any(plain.values()):
-        raise AssertionError("the 1080p RA-form ShardedEncoder differs from "
-                             "the Encoder or missed its kernels")
-    decode_equals(par_out, rec, dev, "1080p RA-form sharded encode")
+    launches_enc = phase_sharded_encode(dev, card, out_dir)
     log(f"[parallel] parallel phase: {time.perf_counter() - t_phase:.1f} s "
         f"in all (host clock); card {card}")
-    return launches_ra[4, 1], launches_enc
+    return launches_ra, launches_enc
 
 
 # ---------------------------------------------------------------------------
@@ -2757,6 +3076,8 @@ def phase_bench(card):
 
 
 def main():
+    if sys.argv[1:2] == ["--mirror"]:
+        return mirror_main(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1

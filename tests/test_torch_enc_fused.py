@@ -414,6 +414,6 @@ def test_cuda_failing_capture_raises(cuda):
     raises, and the program keeps no graph."""
     prog = G.GraphProgram()
     with pytest.raises(RuntimeError):
-        prog.run(cuda, G.CACHE.pool(cuda),
+        prog.run(G.lane(cuda),
                  lambda: torch.ones(4, device=cuda).sum().item())
     assert prog.graph is None

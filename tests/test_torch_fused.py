@@ -18,6 +18,10 @@ One gpu-marked test decodes LDB_medium_complexity through the graphs on
 the card. Tolerance: exact equality throughout.
 """
 
+import contextlib
+import gc
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -216,38 +220,41 @@ def test_cache_keys_and_bound():
     assert G.MAXSIZE == 256 and G.CACHE.maxsize == 256
 
 
-def test_cache_forgets_pools_without_graphs():
-    """A graph pool dies with its last graph: the cache keeps a device's
-    pool handle only while one of its entries holds a graph."""
+def test_cache_forgets_pools_without_graphs(monkeypatch):
+    """A graph pool dies with its last graph: a lane keeps its pool
+    handle while a graph captured on it lives, and takes a new one once
+    none does (a freed pool's handle must not be used again)."""
+    handles = itertools.count()
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: (0, next(handles)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
     cache = G.FrameCache(maxsize=2)
-    a, b = torch.device("meta", 0), torch.device("meta", 1)
-    live = _Stub()
-    live.graph = object()
-    cache.pools = {a: (0, 1), b: (0, 2)}
-    cache.get((a, "x"), lambda: live)
-    cache.get((b, "y"), _Stub)
-    cache.forget_idle_pools()
-    assert cache.pools == {a: (0, 1)}
-    cache.entries.clear()
-    cache.forget_idle_pools()
-    assert cache.pools == {}
+    ln = G.Lane(torch.device("meta", 0), None, ("meta:0", "pools"))
+    first = cache.pool(ln)
+    prog = G.GraphProgram()
+    prog.graph = object()
+    ln.graphs.add(prog)
+    assert cache.pool(ln) == cache.pool(ln) == first
+    del prog
+    gc.collect()
+    second = cache.pool(ln)
+    assert second != first and cache.pools == {ln: second}
 
 
 def test_cache_drops_one_kind():
-    """drop(kind) takes out the entries of that class only, and the pool
-    of a device left with no graph."""
+    """drop(kind) takes out the entries of that class only."""
     class Other(_Stub):
         pass
 
     cache = G.FrameCache(maxsize=4)
     a = torch.device("meta", 0)
     keep = _Stub()
-    cache.pools = {a: (0, 1)}
     cache.get((a, "x"), lambda: keep)
     cache.get((a, "y"), Other)
     cache.get((a, "z"), Other)
     cache.drop(Other)
-    assert list(cache.entries) == [(a, "x")] and cache.pools == {}
+    assert list(cache.entries) == [(a, "x")]
     cache.drop()
     assert not cache.entries
 
@@ -272,7 +279,8 @@ def test_capture_counts_are_taken_back():
 
 def test_cpu_decode_fills_the_cache_once_per_signature():
     """A decode adds one entry per frame signature (the keys name the
-    device and the signature); a second decode adds none."""
+    lane, the device and its stream, and the signature); a second decode
+    adds none."""
     path = str(TESTDATA / "LDB_low_complexity.bit")
     seq, frames = _frames("LDB_low_complexity")
     sigs = set()
@@ -283,7 +291,7 @@ def test_cpu_decode_fills_the_cache_once_per_signature():
     G.CACHE.clear()
     decode_file(path, device="cpu")
     keys = set(G.CACHE.entries)
-    assert keys == {(torch.device("cpu"), s) for s in sigs}
+    assert keys == {(G.lane(torch.device("cpu")), s) for s in sigs}
     decode_file(path, device="cpu")
     assert set(G.CACHE.entries) == keys
 

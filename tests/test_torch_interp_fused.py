@@ -9,8 +9,8 @@ captured only on a card):
     as it is, a failing program that leaves no entry;
   - Decoder(fused=True) decodes RA16_long to its golden through one entry,
     and a snapshot taken after an interpolated frame restores equal;
-  - Decoder(fused=False), the sharded decoder and Encoder(fused=False)
-    add no entry.
+  - Decoder(fused=False), ShardedDecoder(fused=False) and
+    Encoder(fused=False) add no entry.
 
 Marked gpu: the graph against the eager path on the card, launches
 counted through replays, the clone, a capture that fails. Tolerance:
@@ -187,8 +187,10 @@ def test_snapshot_after_an_interpolated_frame_restores_equal(tmp_path):
 
 
 def test_eager_and_sharded_decodes_add_no_entry():
-    """Decoder(fused=False) and the sharded decoder synthesize the
-    interpolated references stage by stage: no interpolation entry."""
+    """Decoder(fused=False) and ShardedDecoder(fused=False) synthesize
+    the interpolated references stage by stage: no interpolation entry
+    (the fused sharded decoder's entries, one set per slot lane, are in
+    tests/test_torch_parallel_fused.py)."""
     G.CACHE.clear()
     path = str(TESTDATA / "RA_low_complexity.bit")
     golden = np.fromfile(TESTDATA / "RA_low_complexity_dec.yuv", np.uint8)
@@ -196,7 +198,7 @@ def test_eager_and_sharded_decodes_add_no_entry():
     assert np.array_equal(np.concatenate([p.ravel() for f in frames
                                           for p in f]), golden)
     assert not IF.entries()
-    sd = ShardedDecoder(gop=2, tile=1, devices=["cpu"])
+    sd = ShardedDecoder(gop=2, tile=1, devices=["cpu"], fused=False)
     frames = sd.decode_stream(path)
     assert np.array_equal(np.concatenate([p.ravel() for f in frames
                                           for p in f]), golden)

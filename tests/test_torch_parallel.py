@@ -1,5 +1,7 @@
 """The port's parallel decode paths (thor_tpu_torch/parallel) on CPU slots
-(the kernels' plain versions), and, marked gpu, on streams of the card.
+(the kernels' plain versions), and, marked gpu, on streams of the card:
+the eager stages (fused=False); the default, CUDA graphs on the slots'
+lanes, is held to the same goldens in tests/test_torch_parallel_fused.py.
 
 - sharded_reconstruct against dec/reconstruct.reconstruct_frame, frame
   for frame on real inputs of three goldens, at every tested mesh shape;
@@ -189,7 +191,8 @@ def test_sharded_reconstruct_equals_reconstruct_frame(real_frames, gop,
     mesh = make_decode_mesh(["cpu"], gop=gop, tile=tile)
     for name, (seq, frames) in real_frames.items():
         got = sharded_reconstruct(
-            mesh, [(c, i, r) for c, i, r, _ in frames], seq.bipred)
+            mesh, [(c, i, r) for c, i, r, _ in frames], seq.bipred,
+            fused=False)
         for j, (planes, padded) in enumerate(got):
             assert planes.slot is mesh.slots[mesh.row_of(j)][0]
             for a, b in zip(planes.tensors + padded.tensors, frames[j][3]):
@@ -199,7 +202,8 @@ def test_sharded_reconstruct_equals_reconstruct_frame(real_frames, gop,
 def test_sharded_reconstruct_skips_other_processes_frames(real_frames):
     seq, frames = real_frames["LDB_low_complexity"]
     mesh = make_decode_mesh(["cpu"], gop=2, tile=1)
-    got = sharded_reconstruct(mesh, [None, frames[1][:3]], seq.bipred)
+    got = sharded_reconstruct(mesh, [None, frames[1][:3]], seq.bipred,
+                              fused=False)
     assert got[0] is None
     assert torch.equal(got[1][0].tensors[0], frames[1][3][0])
 
@@ -211,7 +215,7 @@ def test_sharded_reconstruct_skips_other_processes_frames(real_frames):
 @pytest.mark.parametrize("gop,tile", [(2, 2), (4, 1), (1, 4)])
 @pytest.mark.parametrize("name", CIF_STREAMS)
 def test_sharded_decode_equals_golden(name, gop, tile):
-    sd = ShardedDecoder(gop=gop, tile=tile, devices=["cpu"])
+    sd = ShardedDecoder(gop=gop, tile=tile, devices=["cpu"], fused=False)
     frames = sd.decode_stream(str(TESTDATA / f"{name}.bit"))
     assert _bytes(frames) == _golden(name)
     assert sd.last_level_sizes == LEVELS[name]
@@ -221,7 +225,7 @@ def test_sharded_decode_equals_golden(name, gop, tile):
 def test_sharded_decode_ra16_long_gop_parallel():
     """The 33-frame RA16 stream: two dyadic sub-GOPs whose B levels reach
     8 frames, over 4 gop rows of 2 tile slots."""
-    sd = ShardedDecoder(gop=4, tile=2, devices=["cpu"])
+    sd = ShardedDecoder(gop=4, tile=2, devices=["cpu"], fused=False)
     h = hashlib.sha256()
     n = 0
     for planes in sd.iter_frames(str(TESTDATA / "RA16_long.bit")):
@@ -252,7 +256,8 @@ def test_tile1_runs_the_decoders_calls():
     a = list(Decoder(device="cpu").decode_stream(path))
     want = _delta(c0)
     c0 = _counts()
-    b = ShardedDecoder(gop=1, tile=1, devices=["cpu"]).decode_stream(path)
+    b = ShardedDecoder(gop=1, tile=1, devices=["cpu"],
+                       fused=False).decode_stream(path)
     assert _delta(c0) == want
     assert all(want.values())
     assert _bytes(a) == _bytes(b)
@@ -262,11 +267,12 @@ def test_level_chunk(monkeypatch):
     """level_chunk bounds a level's width and keeps the decode exact; the
     THOR_LEVEL_CHUNK environment variable is its default."""
     path = str(TESTDATA / "RA_low_complexity.bit")
-    sd = ShardedDecoder(gop=2, tile=2, devices=["cpu"], level_chunk=1)
+    sd = ShardedDecoder(gop=2, tile=2, devices=["cpu"], level_chunk=1,
+                        fused=False)
     assert _bytes(sd.decode_stream(path)) == _golden("RA_low_complexity")
     assert sd.last_level_sizes == [1] * 10
     monkeypatch.setenv("THOR_LEVEL_CHUNK", "2")
-    sd = ShardedDecoder(gop=2, tile=1, devices=["cpu"])
+    sd = ShardedDecoder(gop=2, tile=1, devices=["cpu"], fused=False)
     assert _bytes(sd.decode_stream(path)) == _golden("RA_low_complexity")
     assert max(sd.last_level_sizes) == 2
     assert sum(sd.last_level_sizes) == 10
@@ -275,7 +281,8 @@ def test_level_chunk(monkeypatch):
 def test_python_parse_route():
     """parse="python" (dec/parse.FrameParser laid out as the C parse's
     frame) decodes to the golden with the same levels."""
-    sd = ShardedDecoder(gop=2, tile=2, devices=["cpu"], parse="python")
+    sd = ShardedDecoder(gop=2, tile=2, devices=["cpu"], parse="python",
+                        fused=False)
     frames = sd.decode_stream(str(TESTDATA / "RA_low_complexity.bit"))
     assert _bytes(frames) == _golden("RA_low_complexity")
     assert sd.last_level_sizes == LEVELS["RA_low_complexity"]
@@ -348,7 +355,7 @@ def test_cuda_sharded_reconstruct_equals_reconstruct_frame(card, gop, tile):
     with slot.active():     # the uploads are queued on the slot's stream
         work = [(c, i, [Made(tuple(t.to(card) for t in m.tensors), slot)
                         for m in r]) for c, i, r, _ in frames]
-    got = sharded_reconstruct(mesh, work, seq.bipred)
+    got = sharded_reconstruct(mesh, work, seq.bipred, fused=False)
     torch.cuda.synchronize()
     for j, (planes, padded) in enumerate(got):
         for a, b in zip(planes.tensors + padded.tensors, frames[j][3]):
@@ -362,7 +369,7 @@ def test_cuda_sharded_decode_equals_golden(card, name, gop, tile):
     """Slots as streams of the one card: the golden, thor_tpu's levels,
     the kernels alone (no plain version called)."""
     c0 = _counts()
-    sd = ShardedDecoder(gop=gop, tile=tile)
+    sd = ShardedDecoder(gop=gop, tile=tile, fused=False)
     frames = sd.decode_stream(str(TESTDATA / f"{name}.bit"))
     assert _bytes(frames) == _golden(name)
     assert sd.last_level_sizes == LEVELS[name]
@@ -371,11 +378,11 @@ def test_cuda_sharded_decode_equals_golden(card, name, gop, tile):
 
 @pytest.mark.gpu
 def test_cuda_sharded_decode_ra16_long(card, tmp_path):
-    """RA16_long at 4x2 (8 streams on one card) through the CLI."""
+    """RA16_long at 4x2 (8 streams on one card) through the CLI, eager."""
     out = tmp_path / "o.yuv"
     with redirect_stdout(io.StringIO()):
         assert dec_main([str(TESTDATA / "RA16_long.bit"), str(out),
-                         "--mesh", "4x2"]) == 0
+                         "--mesh", "4x2", "--eager"]) == 0
     want = (TESTDATA / "RA16_long_dec.sha256").read_text().split()[0]
     assert hashlib.sha256(out.read_bytes()).hexdigest() == want
 
@@ -391,7 +398,7 @@ def test_cuda_sharded_decode_across_cards(card, name, gop, tile):
         pytest.skip("needs two CUDA devices or more")
     mesh = make_decode_mesh(gop=gop, tile=tile)
     assert len({s.device for row in mesh.slots for s in row}) > 1
-    sd = ShardedDecoder(mesh)
+    sd = ShardedDecoder(mesh, fused=False)
     h = hashlib.sha256()
     for planes in sd.iter_frames(str(TESTDATA / f"{name}.bit")):
         for p in planes:

@@ -1,4 +1,6 @@
-"""The port's GOP-parallel encoder (thor_tpu_torch/parallel/encode.py) on
+"""The port's GOP-parallel encoder (thor_tpu_torch/parallel/encode.py),
+its eager stages (fused=False; the default, CUDA graphs on the slots'
+lanes, is in tests/test_torch_parallel_fused.py), on
 CPU slots and, marked gpu, on two streams of the card: the committed
 thor_tpu streams (testdata/torch_enc_*.bit) byte for byte, and the
 sequential port Encoder's reconstructions plane for plane. Tolerance:
@@ -59,7 +61,8 @@ def test_sharded_encode_equals_sequential(name, slots, tmp_path,
         pytest.skip("the mirror runs one frame at a time either way")
     fields, frames = load_frames(name)
     out = tmp_path / "par.bit"
-    se = ShardedEncoder(EncoderParams(**fields), devices=["cpu"] * slots)
+    se = ShardedEncoder(EncoderParams(**fields), devices=["cpu"] * slots,
+                        fused=False)
     rec = se.encode_sequence(frames, str(out))
     assert out.read_bytes() == golden_path(name).read_bytes()
     assert _same(rec, _sequential(name, tmp_path_factory))
@@ -80,8 +83,8 @@ def test_cuda_sharded_encode_on_two_streams(name, tmp_path):
     c0 = [f.calls for f in plains]
     fields, frames = load_frames(name)
     out = tmp_path / "par.bit"
-    ShardedEncoder(EncoderParams(**fields), devices=["cuda:0", "cuda:0"]) \
-        .encode_sequence(frames, str(out))
+    ShardedEncoder(EncoderParams(**fields), devices=["cuda:0", "cuda:0"],
+                   fused=False).encode_sequence(frames, str(out))
     assert out.read_bytes() == golden_path(name).read_bytes()
     assert [f.calls for f in plains] == c0
 
@@ -94,5 +97,6 @@ def test_cuda_sharded_encode_across_cards(tmp_path):
         pytest.skip("needs two CUDA devices or more")
     fields, frames = load_frames("ra_qcif")
     out = tmp_path / "par.bit"
-    ShardedEncoder(EncoderParams(**fields)).encode_sequence(frames, str(out))
+    ShardedEncoder(EncoderParams(**fields), fused=False) \
+        .encode_sequence(frames, str(out))
     assert out.read_bytes() == golden_path("ra_qcif").read_bytes()

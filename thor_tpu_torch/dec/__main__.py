@@ -137,7 +137,8 @@ def main(argv=None):
     ap.add_argument("--eager", action="store_true",
                     help="queue the frame program stage by stage instead "
                          "of replaying one CUDA graph per frame signature "
-                         "(Decoder(fused=False))")
+                         "(Decoder(fused=False); with --mesh "
+                         "ShardedDecoder(fused=False))")
     ap.add_argument("--mesh", metavar="GxT",
                     help="decode through the gop x tile sharded decoder "
                          "(parallel/stream.py), e.g. --mesh 2x4; slots "
@@ -149,7 +150,8 @@ def main(argv=None):
         from ..parallel.stream import ShardedDecoder
         gop, tile = (int(x) for x in args.mesh.split("x"))
         devices = None if args.device == "cuda" else [args.device]
-        sd = ShardedDecoder(gop=gop, tile=tile, devices=devices)
+        sd = ShardedDecoder(gop=gop, tile=tile, devices=devices,
+                            fused=not args.eager)
         n = 0
         t0 = time.perf_counter()
         with open(args.output, "wb") as out:

@@ -19,28 +19,29 @@ CUDA graph:
     count on the device; the deblocking strengths become 0-d arrays;
   - pack_frame lays the padded arrays out in one host buffer (pinned for
     a card), so that a frame's inputs cross in one copy;
-  - run_frame looks the frame's signature (the device, the frame
-    configuration, the MC filter set and the layout of the packed
-    arrays, which names every group present and every bucket size) up in
-    a cache of at most 256 entries (thor_tpu's lru_cache bound; the
-    least recently used goes first). A new entry allocates its input
-    buffers on the device, runs the frame program once on a side stream
+  - run_frame looks the frame's signature (the frame configuration, the
+    MC filter set and the layout of the packed arrays, which names every
+    group present and every bucket size) up in its lane's part of the
+    cache of at most 256 entries (ops/graphs: a lane is the device and
+    the current stream; thor_tpu's lru_cache bound; the least recently
+    used goes first). A new entry allocates its input buffers on the
+    device, runs the frame program once on the lane's side stream
     (PyTorch's graph notes: cuBLAS and the kernels' libraries initialise
-    outside a capture), then captures it as a torch.cuda.CUDAGraph. Each
-    frame then copies its packed inputs and its R reference planes into
-    the entry's buffers, replays the graph on the current stream and
-    clones the outputs. The entries of a device share one graph memory
-    pool: replays run one at a time on one stream, and a replay's
-    outputs are cloned before the next one.
+    outside a capture), then captures it as a torch.cuda.CUDAGraph into
+    the lane's pool. Each frame then copies its packed inputs and its R
+    reference planes into the entry's buffers, replays the graph on the
+    lane's stream and clones the outputs, all under the lane's lock.
 
-The entries, their buffers and the reference stacks are shared by
-every decoder of the process: one thread dispatches frames to a device at
-a time (the Decoder's main thread). The interpolated reference an RA /
-HDB frame predicts from is one more graph, replayed just before the
-frame's (ops/interp_fused.py, keyed by size and weights, not folded into
-the frame signature). The sharded decoder, whose slots dispatch on
-several streams at once, stays on the eager path. The graph machinery
-(capture, replay, the cache and its pools, the launch counts) lives in
+The entries, their buffers and the reference stacks belong to one lane:
+the Decoder's main thread dispatches on the device's current stream, and
+each slot of the sharded decoder (parallel/mesh.py, under Slot.active)
+on its own stream, so its own lane; two threads on one lane take turns
+frame by frame. The interpolated reference an RA / HDB frame predicts
+from is one more graph, replayed just before the frame's
+(ops/interp_fused.py, keyed by size and weights, not folded into the
+frame signature). A band of a frame split across tile slots runs the
+band programs of parallel/fused.py. The graph machinery (capture,
+replay, the cache, its lanes and pools, the launch counts) lives in
 ops/graphs.py, whose cache also holds the interpolation entries and the
 device encoder's P/B and I-frame programs (enc/fused.py,
 enc/fused_intra.py).
@@ -59,7 +60,7 @@ import numpy as np
 import torch
 
 from ..codec.constants import PAD_C, PAD_Y
-from ..ops.graphs import CACHE, GraphProgram, device as _device
+from ..ops import graphs as G
 from ..ops.interp_fused import entries as interp_entries
 from .inputs import FrameConfig
 from .reconstruct import mc_luts, reconstruct_frame
@@ -203,18 +204,19 @@ def unpack(buf, layout):
     return out
 
 
-class _Entry(GraphProgram):
+class _Entry(G.GraphProgram):
     """One frame signature's input buffers, reference stacks and, on a
-    card, its graph with the graph's output planes."""
+    card, its graph with the graph's output planes, on one lane."""
 
-    def __init__(self, sig: Signature, dev):
+    def __init__(self, sig: Signature, ln):
         super().__init__()
+        dev = ln.dev
         self.cfg = sig.cfg
         self.luts = mc_luts(sig.bipred, dev)
         _, total = _offsets(sig.layout)
         self.flat = torch.empty(total, dtype=torch.uint8, device=dev)
         self.inp = unpack(self.flat, sig.layout)
-        self.stacks = _stacks(dev, self.cfg) if self.cfg.R else None
+        self.stacks = stacks(ln, self.cfg) if self.cfg.R else None
 
     def input_bytes(self) -> int:
         return self.flat.numel()
@@ -228,81 +230,86 @@ class _Entry(GraphProgram):
         """Copy a frame's packed inputs and its reference planes into the
         entry's buffers, on the current stream."""
         self.flat.copy_(pf.buf, non_blocking=True)
-        if self.stacks is not None:
-            sy, suv = self.stacks
-            torch.stack([r.y for r in refs], out=sy[0])
-            torch.stack([r.u for r in refs], out=suv[0])
-            torch.stack([r.v for r in refs], out=suv[1])
+        load_stacks(self.stacks, refs)
 
-    def capture(self, dev, pool):
-        """Warm up on a side stream, then capture the frame program into
-        the device's shared graph pool `pool`."""
-        self.capture_program(dev, pool, self.program)
 
-    def replay(self):
-        """Replay the graph on the current stream; clones of its outputs."""
-        planes, padded = self.replay_graph()
-        return (tuple(p.clone() for p in planes),
-                tuple(p.clone() for p in padded))
+def load_stacks(st, refs):
+    """Stack the R reference objects' padded planes into `st` (stacks())
+    on the current stream."""
+    if st is not None:
+        sy, suv = st
+        torch.stack([r.y for r in refs], out=sy[0])
+        torch.stack([r.u for r in refs], out=suv[0])
+        torch.stack([r.v for r in refs], out=suv[1])
 
 
 _ref_stacks: dict = {}
 
 
-def _stacks(dev, cfg):
-    """The reference stacks of R slots at cfg's size, shared by the
-    entries of a device (only the dispatching thread fills them, on the
-    stream that replays)."""
-    key = (dev, cfg.R, cfg.H, cfg.W)
+def stacks(ln, cfg):
+    """The reference stacks of cfg.R slots at cfg's size, shared by the
+    entries of lane `ln` (filled under the lane's lock, on its stream).
+    Stacks of a lane left with no entry go when new ones are made (an
+    entry keeps its own)."""
+    key = (ln, cfg.R, cfg.H, cfg.W)
     if key not in _ref_stacks:
+        live = {k for k, _ in list(G.CACHE.entries)}
+        for k in [k for k in _ref_stacks if k[0] not in live]:
+            del _ref_stacks[k]
         H, W, R = cfg.H, cfg.W, cfg.R
         _ref_stacks[key] = (
             torch.empty((1, R, H + 2 * PAD_Y, W + 2 * PAD_Y),
-                        dtype=torch.uint8, device=dev),
+                        dtype=torch.uint8, device=ln.dev),
             torch.empty((2, R, H // 2 + 2 * PAD_C, W // 2 + 2 * PAD_C),
-                        dtype=torch.uint8, device=dev))
+                        dtype=torch.uint8, device=ln.dev))
     return _ref_stacks[key]
 
 
-def footprint(dev) -> dict:
-    """Device bytes the graphs hold on `dev` (the decoder's, the
-    interpolation's and the encoder's: they share the cache and its
-    pools): the shared pool's segments (torch.cuda.memory_snapshot; the
-    graphs' intermediates and outputs, which max_memory_allocated does not
-    see between replays), the entries' input buffers (of them the
-    interpolation entries' two references, "interp_input_bytes") and the
-    decoder's reference stacks."""
-    dev = _device(dev)
-    pid = CACHE.pools.get(dev)
+def lane_footprint(ln) -> dict:
+    """Device bytes the graphs of lane `ln` hold (the decoder's, the
+    interpolation's and the encoder's: they share the lane's pool): the
+    pool's segments (torch.cuda.memory_snapshot; the graphs'
+    intermediates and outputs, which max_memory_allocated does not see
+    between replays), the entries' input buffers (of them the
+    interpolation entries' two references, "interp_input_bytes"), the
+    reference stacks, and the lane's captures, capture ms and replays."""
+    pid = G.CACHE.pools.get(ln)
     pool = 0 if pid is None else sum(
         seg["total_size"] for seg in torch.cuda.memory_snapshot()
-        if seg["device"] == dev.index
+        if seg["device"] == ln.dev.index
         and tuple(seg["segment_pool_id"]) == tuple(pid))
-    mine = [e for (d, _), e in CACHE.entries.items() if d == dev]
-    interp = interp_entries(dev)
+    mine = G.CACHE.of_lane(ln)
+    interp = interp_entries(lane=ln)
     return {"entries": len(mine), "pool_bytes": pool,
             "input_bytes": sum(e.input_bytes() for e in mine),
             "interp_entries": len(interp),
             "interp_input_bytes": sum(e.input_bytes() for e in interp),
-            "stack_bytes": sum(t.numel() for (d, *_), ts in
-                               _ref_stacks.items() if d == dev for t in ts)}
+            "stack_bytes": sum(t.numel() for (k, *_), ts in
+                               list(_ref_stacks.items()) if k is ln
+                               for t in ts),
+            "captures": ln.captures, "capture_ms": ln.capture_ms,
+            "replays": ln.replays}
+
+
+def footprint(dev) -> dict:
+    """lane_footprint summed over the lanes of `dev` that hold an entry,
+    with "lanes" (their count) and "per_lane" (each lane's)."""
+    per = [lane_footprint(ln) for ln in G.lanes(dev)]
+    per = [f for f in per if f["entries"]]
+    keys = ("entries", "pool_bytes", "input_bytes", "interp_entries",
+            "interp_input_bytes", "stack_bytes")
+    out = {k: sum(f[k] for f in per) for k in keys}
+    out.update(lanes=len(per), per_lane=per)
+    return out
 
 
 def run_frame(dev, pf: PackedFrame, refs):
-    """Decode one frame from its packed inputs: refs, the R reference
-    objects (codec-padded .y/.u/.v uint8 tensors on `dev`) in slot
-    order. Returns (y, u, v) uint8 planes and their edge-padded copies
-    (pad 96 luma, 48 chroma), as dec/reconstruct.reconstruct_frame."""
-    dev = _device(dev)
-    e, fresh = CACHE.get((dev, pf.sig), lambda: _Entry(pf.sig, dev))
-    try:
-        e.load(pf, refs)
-        if dev.type != "cuda":
-            return e.program()
-        if fresh:
-            e.capture(dev, CACHE.pool(dev))
-    except BaseException:
-        if fresh:
-            CACHE.discard((dev, pf.sig))
-        raise
-    return e.replay()
+    """Decode one frame from its packed inputs on the lane of `dev` (its
+    current stream): refs, the R reference objects (codec-padded .y/.u/.v
+    uint8 tensors on `dev`) in slot order. Returns (y, u, v) uint8 planes
+    and their edge-padded copies (pad 96 luma, 48 chroma), as
+    dec/reconstruct.reconstruct_frame; on a card clones that later
+    replays leave as they are."""
+    ln = G.lane(dev)
+    return G.run_cached(ln, pf.sig, lambda: _Entry(pf.sig, ln),
+                        lambda e: e.load(pf, refs))

@@ -827,8 +827,11 @@ def finish_inter_frame_device(enc, w, ctx):
     uint8 planes on the device and fetched, the padded reference planes
     and the CLPF decision per superblock."""
     if ctx["fused"]:
-        leaves = _decide(enc, ctx, ctx["meas"], ctx["intra"])
-        out = FU.finish_frame(enc, w, ctx, leaves)
+        try:
+            leaves = _decide(enc, ctx, ctx["meas"], ctx["intra"])
+            out = FU.finish_frame(enc, w, ctx, leaves)
+        finally:
+            FU.release(ctx)
         if ctx.get("rec") is not None:
             ctx["rec"]["fused"] = {k: ctx[k] for k in (
                 "sig", "small", "extra", "fsig", "fbuf")}

@@ -31,33 +31,37 @@ the measure maps, for the second chance's maps (when there is one) and
 for the final fetch (planes, CLPF bits, intra levels, chosen
 coefficients).
 
-Entries. One entry per measure signature (the device, the geometry, the
-reference count, the bipred slots, the filter set, tb split, speed, the
-intra mode count and the two QPs: the ops read them as Python numbers)
-lives in ops/graphs' CACHE beside the decoder's frame entries, the
-interpolated reference's entries (ops/interp_fused.py; an RA form's B
-frame replays one before its measure program) and the I frame's
-(enc/fused_intra.py, which reuses this module's fetch, buckets, final
-runner and filter tail), sharing their graph pools and side streams. It
-holds the input buffers (the original planes, the reference stacks, one
-packed buffer of the signs and lambdas), the measure program, the extra
-program and up to FINALS final programs by their own signature (the
-filters, whether the second chance ran, and the layout of the final's
-packed inputs, which names the MC and intra buckets; an entry's buckets
-only grow, _bucket, so a sequence captures a new final only when a frame
-needs more records than any before it or a second chance for the first
-time). Every program reads
+Entries. One entry per measure signature (the geometry, the reference
+count, the bipred slots, the filter set, tb split, speed, the intra mode
+count and the two QPs: the ops read them as Python numbers) and lane
+(ops/graphs: the device and the current stream, so each clone of the
+sharded encoder replays on its own slot) lives in ops/graphs' CACHE
+beside the decoder's frame entries, the interpolated reference's entries
+(ops/interp_fused.py; an RA form's B frame replays one before its
+measure program) and the I frame's (enc/fused_intra.py, which reuses this
+module's fetch, buckets, final runner and filter tail), sharing the
+lane's graph pool and side stream. It holds the input buffers (the
+original planes, the reference stacks, one packed buffer of the signs and
+lambdas), the measure program, the extra program and up to FINALS final
+programs by their own signature (the filters, whether the second chance
+ran, and the layout of the final's packed inputs, which names the MC and
+intra buckets; an entry's buckets only grow, _bucket, so a sequence
+captures a new final only when a frame needs more records than any
+before it or a second chance for the first time). Every program reads
 its inputs from the entry's buffers and its predecessors' outputs in
-place; every output lives until the same program runs again. Inputs
-cross from the host in one pinned buffer per program, copied on the
-stream without a wait.
+place; every output lives until the same program runs again. So a frame
+holds the lane's lock from its measure's load to its final's fetch
+(measure_frame takes it, finish_frame or release gives it back): no other
+program of the lane replays in between, which would reuse the graph
+pool's memory under the trial banks that the final reads, and no other
+frame measures on the entry (the sharded encoder gives a slot one frame
+in flight at a time). Inputs cross from the host in one pinned buffer
+per program, copied on the stream without a wait.
 
 On the CPU the same entries run their programs without a graph, through
 the kernels' plain versions. A capture that fails raises; nothing falls
 back to the eager path (enc/device_inter's stage-wise functions, which
-Encoder(fused=False) runs, and which the sharded encoder's clones run:
-they dispatch on several streams at once, and a device's graphs share
-one pool whose replays run one at a time).
+Encoder(fused=False) and ShardedEncoder(fused=False) run).
 """
 
 from __future__ import annotations
@@ -432,12 +436,13 @@ class _Final(G.GraphProgram):
 
 
 class EncEntry:
-    """One measure signature's input buffers and programs (see the module
-    notes)."""
+    """One measure signature's input buffers and programs on one lane
+    (see the module notes)."""
 
-    def __init__(self, sig: MeasureSig, dev):
+    def __init__(self, sig: MeasureSig, ln):
         H, W, R = sig.H, sig.W, sig.R
-        self.sig, self.dev = sig, dev
+        self.sig, self.lane, self.dev = sig, ln, ln.dev
+        dev = ln.dev
         u8 = dict(dtype=torch.uint8, device=dev)
         self.oy = torch.empty((H, W), dtype=I32, device=dev)
         self.oc = torch.empty((2, H // 2, W // 2), dtype=I32, device=dev)
@@ -469,10 +474,6 @@ class EncEntry:
             self.oy, self.oc, self.ry, self.rc, self.small, self.ev)) \
             + sum(f.flat.numel() for f in self.finals.values())
 
-    def _run(self, prog, program):
-        pool = G.CACHE.pool(self.dev) if self.dev.type == "cuda" else None
-        return prog.run(self.dev, pool, program)
-
     def run_measure(self, org, refs, small):
         """Load a frame's original planes (y, u, v), its reference objects
         (.y / .u / .v padded uint8 on the device, slot order) and its
@@ -484,13 +485,13 @@ class EncEntry:
         torch.stack([r.u for r in refs], out=self.rc[0])
         torch.stack([r.v for r in refs], out=self.rc[1])
         self.small.copy_(small, non_blocking=True)
-        return self._run(self.measure, lambda: measure_program(self))
+        return self.measure.run(self.lane, lambda: measure_program(self))
 
     def run_extra(self, ev):
         """Load the second chance's packed variants and run the extra
         program (after run_measure of the same frame)."""
         self.ev.copy_(ev, non_blocking=True)
-        return self._run(self.extra, lambda: extra_program(self))
+        return self.extra.run(self.lane, lambda: extra_program(self))
 
     def run_final(self, fsig: FinalSig, buf):
         """Load a frame's packed final inputs and run the final program
@@ -502,8 +503,8 @@ class EncEntry:
 def run_final_of(e, fsig, buf, program):
     """Load packed final inputs `buf` into entry e's final program of
     signature fsig (made at its first use, at most FINALS kept, the least
-    recently used going first) and run program(e, final) there. A final
-    whose first run fails leaves the entry again."""
+    recently used going first) and run program(e, final) there, on e's
+    lane. A final whose first run fails leaves the entry again."""
     f = e.finals.get(fsig)
     fresh = f is None
     if fresh:
@@ -511,14 +512,13 @@ def run_final_of(e, fsig, buf, program):
         while len(e.finals) > FINALS:
             _, old = e.finals.popitem(last=False)
             if old.graph is not None:
-                torch.cuda.current_stream(e.dev).synchronize()
+                e.lane.drain()
             G.STATS["evictions"] += 1
     else:
         e.finals.move_to_end(fsig)
     try:
         f.flat.copy_(buf, non_blocking=True)
-        pool = G.CACHE.pool(e.dev) if e.dev.type == "cuda" else None
-        return f.run(e.dev, pool, lambda: program(e, f))
+        return f.run(e.lane, lambda: program(e, f))
     except BaseException:
         if fresh:
             e.finals.pop(fsig, None)
@@ -526,11 +526,14 @@ def run_final_of(e, fsig, buf, program):
 
 
 def run_measure(dev, sig, org, refs, small):
-    """EncEntry.run_measure on the cache's entry of (dev, sig), made at
-    its first use: (entry, the measure outputs). A new entry whose first
-    run fails leaves the cache again."""
-    key = (dev, ("enc", sig))
-    e, fresh = G.CACHE.get(key, lambda: EncEntry(sig, dev))
+    """EncEntry.run_measure on the cache's entry of sig on the lane of
+    `dev` (its current stream), made at its first use: (entry, the
+    measure outputs). A new entry whose first run fails leaves the cache
+    again. The caller holds the lane's lock (G.lane(dev).lock) through
+    the frame's final."""
+    ln = G.lane(dev)
+    key = (ln, ("enc", sig))
+    e, fresh = G.CACHE.get(key, lambda: EncEntry(sig, ln))
     try:
         return e, e.run_measure(org, refs, small)
     except BaseException:
@@ -557,8 +560,14 @@ def measure_frame(enc, org, refs, sign, sign_bi, has_bi, bslot0, bslot1,
                      qpC)
     _, small = DF.pack_fields(small_fields(lam, lam_me, sign, sign_bi),
                               pin=dev.type == "cuda")
-    e, (_, _, flat, layout) = run_measure(dev, sig, org, refs, small)
-    got = host_maps(fetch(flat), layout)
+    lock = G.lane(dev).lock
+    lock.acquire()              # until the final's fetch (release)
+    try:
+        e, (_, _, flat, layout) = run_measure(dev, sig, org, refs, small)
+        got = host_maps(fetch(flat), layout)
+    except BaseException:
+        lock.release()
+        raise
     meas = {}
     for s in DI.SIZES:
         meas[s] = {k: got[("var", s, k)] for k in DI.VAR_KEYS}
@@ -568,10 +577,18 @@ def measure_frame(enc, org, refs, sign, sign_bi, has_bi, bslot0, bslot1,
     intra = {s: (got[("intra", s, 0)], got[("intra", s, 1)])
              for s in DI.SIZES}
     enc.frame_times[-1]["measure"] = time.perf_counter() - t0
-    return dict(fused=True, entry=e, sig=sig, small=small, meas=meas,
-                intra=intra, org=org, sign_np=sign, sign_bi_np=sign_bi,
-                lam=lam, lam_me=lam_me, qpY=qpY, qpC=qpC, extra=None,
-                captures0=c0, capture_ms0=ms0)
+    return dict(fused=True, entry=e, lock=lock, sig=sig, small=small,
+                meas=meas, intra=intra, org=org, sign_np=sign,
+                sign_bi_np=sign_bi, lam=lam, lam_me=lam_me, qpY=qpY,
+                qpC=qpC, extra=None, captures0=c0, capture_ms0=ms0)
+
+
+def release(ctx):
+    """Give back the lane's lock that the frame of `ctx` took at its
+    measure (once; later calls do nothing)."""
+    lock = ctx.pop("lock", None)
+    if lock is not None:
+        lock.release()
 
 
 def second_chance(enc, ctx, leaves):
@@ -681,13 +698,16 @@ def finish_frame(enc, w, ctx, leaves):
     fsig = FinalSig(bool(p.deblocking), bool(p.clpf),
                     ctx["extra"] is not None, layout)
     c0 = G.STATS["captures"]
-    y, u, v, padded, flat, flayout = ctx["entry"].run_final(fsig, buf)
+    try:
+        y, u, v, padded, flat, flayout = ctx["entry"].run_final(fsig, buf)
+        planes = tuple(t.clone() for t in (y, u, v))
+        padded = tuple(t.clone() for t in padded)
+        got = host_maps(fetch(flat), flayout)
+    finally:
+        release(ctx)
     times["final_captures"] = G.STATS["captures"] - c0
     times["captures"] = G.STATS["captures"] - ctx["captures0"]
     times["capture"] = (G.STATS["capture_ms"] - ctx["capture_ms0"]) / 1e3
-    planes = tuple(t.clone() for t in (y, u, v))
-    padded = tuple(t.clone() for t in padded)
-    got = host_maps(fetch(flat), flayout)
     ctx.update(fsig=fsig, fbuf=buf)
     intra_q = {}
     if intra:
@@ -740,9 +760,10 @@ def replay_frame(rec, refstate):
     refs = [_Ref(refstate[k]) for k in rec["ref_keys"]]
     f = rec["fused"]
     org = rec["org"]
-    e, _ = run_measure(org[0].device, f["sig"], org, refs, f["small"])
-    if f["extra"] is not None:
-        e.run_extra(f["extra"])
-    y, u, v, padded, _, _ = e.run_final(f["fsig"], f["fbuf"])
-    refstate[("r", rec["frame_num"])] = tuple(t.clone() for t in padded)
-    return tuple(t.clone() for t in (y, u, v))
+    with G.lane(org[0].device).lock:
+        e, _ = run_measure(org[0].device, f["sig"], org, refs, f["small"])
+        if f["extra"] is not None:
+            e.run_extra(f["extra"])
+        y, u, v, padded, _, _ = e.run_final(f["fsig"], f["fbuf"])
+        refstate[("r", rec["frame_num"])] = tuple(t.clone() for t in padded)
+        return tuple(t.clone() for t in (y, u, v))

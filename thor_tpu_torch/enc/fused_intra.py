@@ -26,13 +26,16 @@ final fetch the host emits the block syntax from the fetched levels
 the encoder writes the CLPF bits from the fetched decisions
 (Encoder._filters_done).
 
-Entries. One entry per search signature (the device, the geometry, the
-speed, the intra mode count and the two QPs, which the ops read as Python
-numbers) lives in ops/graphs' CACHE beside the decoder's and the P/B
-encoder's entries, sharing their graph pools and side streams. It holds
-the original planes, the lambda (a float32 on the card) and up to
-enc/fused.FINALS final programs by their signature (the filters and the
-layout of the packed inputs, which names the record buckets).
+Entries. One entry per search signature (the geometry, the speed, the
+intra mode count and the two QPs, which the ops read as Python numbers)
+and lane (ops/graphs: the device and the current stream; each clone of
+the sharded encoder has its slot's) lives in ops/graphs' CACHE beside the
+decoder's and the P/B encoder's entries, sharing the lane's graph pool
+and side stream. It holds the original planes, the lambda (a float32 on
+the card) and up to enc/fused.FINALS final programs by their signature
+(the filters and the layout of the packed inputs, which names the record
+buckets). The final reads the search's outputs in place, so a frame
+holds the lane's lock from its search's load to its final's fetch.
 
 Encoder(fused=True), the default, runs these; fused=False runs
 device_intra.encode_intra_frame_device and Encoder._filters. On the CPU
@@ -130,12 +133,13 @@ def final_program(e, f):
 
 
 class IntraEntry:
-    """One search signature's input buffers and programs (see the module
-    notes)."""
+    """One search signature's input buffers and programs on one lane (see
+    the module notes)."""
 
-    def __init__(self, sig: IntraSig, dev):
+    def __init__(self, sig: IntraSig, ln):
         H, W = sig.H, sig.W
-        self.sig, self.dev = sig, dev
+        self.sig, self.lane, self.dev = sig, ln, ln.dev
+        dev = ln.dev
         self.oy = torch.empty((H, W), dtype=I32, device=dev)
         self.oc = torch.empty((2, H // 2, W // 2), dtype=I32, device=dev)
         self.org = (self.oy, self.oc[0], self.oc[1])
@@ -163,8 +167,7 @@ class IntraEntry:
         for dst, src in zip(self.org, org):
             dst.copy_(src)
         self.small.copy_(small, non_blocking=True)
-        pool = G.CACHE.pool(self.dev) if self.dev.type == "cuda" else None
-        return self.search.run(self.dev, pool, lambda: search_program(self))
+        return self.search.run(self.lane, lambda: search_program(self))
 
     def run_final(self, fsig: IntraFinalSig, buf):
         """Load a frame's packed final inputs and run the final program of
@@ -178,11 +181,13 @@ def small_fields(lam):
 
 
 def run_search(dev, sig, org, small):
-    """IntraEntry.run_search on the cache's entry of (dev, sig), made at
-    its first use: (entry, (flat, layout)). A new entry whose first run
-    fails leaves the cache again."""
-    key = (dev, ("intra", sig))
-    e, fresh = G.CACHE.get(key, lambda: IntraEntry(sig, dev))
+    """IntraEntry.run_search on the cache's entry of sig on the lane of
+    `dev` (its current stream), made at its first use: (entry, (flat,
+    layout)). A new entry whose first run fails leaves the cache again.
+    The caller holds the lane's lock through the frame's final."""
+    ln = G.lane(dev)
+    key = (ln, ("intra", sig))
+    e, fresh = G.CACHE.get(key, lambda: IntraEntry(sig, ln))
     try:
         return e, e.run_search(org, small)
     except BaseException:
@@ -231,21 +236,23 @@ def encode_intra_frame_fused(enc, w, org_y, org_u, org_v):
     t0 = time.perf_counter()
     _, small = DF.pack_fields(small_fields(enc.lambda_), pin=pin)
     org = (org_y, org_u, org_v)
-    e, (flat, layout) = run_search(dev, sig, org, small)
-    got = FU.host_maps(FU.fetch(flat), layout)
-    modes, split = intra_split_decisions(
-        {s: (got[(s, 0)], got[(s, 1)]) for s in SIZES}, W, H)
-    tus = _walk_tree(split, modes, W, H)
-    t1 = time.perf_counter()
-    times["search"] = t1 - t0
+    with G.lane(dev).lock:
+        e, (flat, layout) = run_search(dev, sig, org, small)
+        got = FU.host_maps(FU.fetch(flat), layout)
+        modes, split = intra_split_decisions(
+            {s: (got[(s, 0)], got[(s, 1)]) for s in SIZES}, W, H)
+        tus = _walk_tree(split, modes, W, H)
+        t1 = time.perf_counter()
+        times["search"] = t1 - t0
 
-    inp = final_inputs(e, tus, enc.deblock_data, W, H, bool(p.deblocking))
-    layout, buf = DF.pack_fields(inp, pin=pin)
-    fsig = IntraFinalSig(bool(p.deblocking), bool(p.clpf), layout)
-    y, u, v, padded, flat, flayout = e.run_final(fsig, buf)
-    planes = tuple(t.clone() for t in (y, u, v))
-    padded = tuple(t.clone() for t in padded)
-    got = FU.host_maps(FU.fetch(flat), flayout)
+        inp = final_inputs(e, tus, enc.deblock_data, W, H,
+                           bool(p.deblocking))
+        layout, buf = DF.pack_fields(inp, pin=pin)
+        fsig = IntraFinalSig(bool(p.deblocking), bool(p.clpf), layout)
+        y, u, v, padded, flat, flayout = e.run_final(fsig, buf)
+        planes = tuple(t.clone() for t in (y, u, v))
+        padded = tuple(t.clone() for t in padded)
+        got = FU.host_maps(FU.fetch(flat), flayout)
     n = len(tus)
     q16c = got[("q16c",)]
     t2 = time.perf_counter()
@@ -277,9 +284,10 @@ def replay_intra_frame(rec):
     org = rec["org"]
     f = rec["fused"]
     if f is not None:
-        e, _ = run_search(org[0].device, f["sig"], org, f["small"])
-        y, u, v = e.run_final(f["fsig"], f["fbuf"])[:3]
-        return tuple(t.clone() for t in (y, u, v))
+        with G.lane(org[0].device).lock:
+            e, _ = run_search(org[0].device, f["sig"], org, f["small"])
+            y, u, v = e.run_final(f["fsig"], f["fbuf"])[:3]
+            return tuple(t.clone() for t in (y, u, v))
     from .device_inter import _replay_filters
     H, W, fast = rec["H"], rec["W"], rec["fast"]
     dev = org[0].device

@@ -10,24 +10,26 @@ the synthesis of the three padded planes (kernels 4-5), the program of
 ops/interp.interpolate_frames on the entry's input buffers.
 
 An entry lives in ops/graphs' CACHE beside the decoder's frame entries and
-the encoder's entries, keyed by (device, ("interp", W, H, wt0, wt1)).
-The weights belong in the signature: me_level and mot_comp_uv pass them
-to their kernels as scalars, which a capture bakes in. The reversed path
-(pos > ratio / 2) is folded into the weights and the order in which the
-references are loaded. An entry holds both references' padded planes in
-one buffer, which a frame fills with one copy on the current stream; the
-graph writes the three padded planes into one output buffer, which
-run_interp clones (one copy): the interpolated reference outlives the next
-replay (the decoder's interp_frame and its snapshots, the encoder's
-interp_frame and the references of its device records).
+the encoder's entries, keyed by (lane, ("interp", W, H, wt0, wt1)): the
+lane is the device and the current stream, so each slot of the sharded
+paths has its own entries. The weights belong in the signature: me_level
+and mot_comp_uv pass them to their kernels as scalars, which a capture
+bakes in. The reversed path (pos > ratio / 2) is folded into the weights
+and the order in which the references are loaded. An entry holds both
+references' padded planes in one buffer, which a frame fills with one
+copy on the lane's stream; the graph writes the three padded planes into
+one output buffer, which run_interp clones (one copy), all under the
+lane's lock: the interpolated reference outlives the next replay (the
+decoder's interp_frame and its snapshots, the encoder's interp_frame and
+the references of its device records, a sharded frame's reference on its
+tile-0 slot).
 
-Decoder(fused=True) and Encoder(fused=True) call run_interp;
-fused=False, the numpy backend and the sharded paths (parallel/stream.py,
-parallel/encode.py, whose slots dispatch on several streams at once)
-call interpolate_frames. On the CPU there is no graph: the same entry
-runs the program on its buffers through the kernels' plain versions. A
-capture that fails raises and leaves no entry; nothing falls back to the
-eager function.
+Decoder(fused=True), Encoder(fused=True), ShardedDecoder(fused=True) and
+ShardedEncoder(fused=True) call run_interp; fused=False and the numpy
+backend call interpolate_frames. On the CPU there is no graph: the same
+entry runs the program on its buffers through the kernels' plain
+versions. A capture that fails raises and leaves no entry; nothing falls
+back to the eager function.
 """
 
 from __future__ import annotations
@@ -117,33 +119,29 @@ def signature(ref0, ref1, ratio: int, pos: int):
 
 
 def run_interp(dev, ref0, ref1, ratio: int, pos: int):
-    """interpolate_frames(ref0, ref1, ratio, pos) through the cache's entry
-    of its signature: (y, u, v, yp, up, vp), the three padded planes and
-    views of their interiors, on a card a copy of the graph's outputs that
-    later replays leave as they are. The host waits for nothing."""
-    dev = G.device(dev)
+    """interpolate_frames(ref0, ref1, ratio, pos) through the entry of its
+    signature on the lane of `dev` (its current stream): (y, u, v, yp, up,
+    vp), the three padded planes and views of their interiors, on a card
+    a copy of the graph's outputs that later replays leave as they are.
+    The host waits for nothing."""
+    ln = G.lane(dev)
     sig, ref0, ref1 = signature(ref0, ref1, ratio, pos)
-    key = (dev, ("interp",) + tuple(sig))
-    e, fresh = G.CACHE.get(key, lambda: InterpEntry(sig, dev))
-    try:
-        e.load(ref0, ref1)
-        pool = G.CACHE.pool(dev) if dev.type == "cuda" else None
-        flat = e.run(dev, pool, e.program)
-    except BaseException:
-        if fresh:
-            G.CACHE.discard(key)
-        raise
-    if dev.type == "cuda":
-        flat = flat.clone()
-    yp, up, vp = _views(flat, e.shapes)
+    flat = G.run_cached(ln, ("interp",) + tuple(sig),
+                        lambda: InterpEntry(sig, ln.dev),
+                        lambda e: e.load(ref0, ref1))
+    yp, up, vp = _views(flat, _plane_shapes(sig.W, sig.H))
     H, W = sig.H, sig.W
     return (yp[PAD_Y:PAD_Y + H, PAD_Y:PAD_Y + W],
             *(p[PAD_C:PAD_C + H // 2, PAD_C:PAD_C + W // 2]
               for p in (up, vp)), yp, up, vp)
 
 
-def entries(dev=None):
-    """The cache's interpolation entries (of `dev`, or of every device)."""
+def entries(dev=None, lane=None):
+    """The cache's interpolation entries (of lane `lane`, of the lanes of
+    `dev`, or of every lane)."""
     dev = None if dev is None else G.device(dev)
-    return [e for (d, _), e in G.CACHE.entries.items()
-            if isinstance(e, InterpEntry) and (dev is None or d == dev)]
+    with G.CACHE.mutex:
+        return [e for (ln, _), e in G.CACHE.entries.items()
+                if isinstance(e, InterpEntry)
+                and (lane is None or ln is lane)
+                and (dev is None or ln.dev == dev)]

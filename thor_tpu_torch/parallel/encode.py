@@ -13,19 +13,26 @@ Each clone encodes under its slot's card and stream (parallel/mesh.py
 rule (b)), where thor_tpu uses jax.default_device. A reference made on
 another slot is handed over by parallel/mesh.Made (rules (a), (d)): an
 event wait and record_stream on the same card, a copy to another card.
-The interpolated reference of a B frame is synthesized by ops/interp on
-the clone's slot once both its references are made (thor_tpu uses its
-host C twin in a one-worker pool), stage by stage like the rest of a
-clone's frame: the clones dispatch on several streams at once, and the
-CUDA graphs of the fused path (ops/graphs) share one pool per device,
-whose replays run one at a time. The host mirror (device_encode=0)
-codes a frame whole in encode_frame_begin and is drained at once; since
-it keeps state across frames (its ME candidates and its reconstruction
-buffer), its frames run one at a time on the master's mirror.
+The interpolated reference of a B frame is synthesized on the clone's
+slot once both its references are made (thor_tpu uses its host C twin in
+a one-worker pool). With fused=True (the default, as the Encoder's) a
+clone's frame runs the Encoder's CUDA graphs on its slot's lane
+(ops/graphs: each slot has its own entries, pool and lock): the measure,
+extra and final programs of enc/fused.py, the I frame's of
+enc/fused_intra.py, the interpolated reference through
+ops/interp_fused.run_interp; fused=False runs the stages one by one
+(enc/device_inter, ops/interp). A P/B frame's final reads its measure
+program's outputs in place, and the frame holds its lane's lock from its
+measure to its final, so a frame goes only to a slot with no frame in
+flight (_free_slot). The host mirror (device_encode=0) codes a frame
+whole in encode_frame_begin and is drained at once; since it keeps state
+across frames (its ME candidates and its reconstruction buffer), its
+frames run one at a time on the master's mirror.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import numpy as np
@@ -37,7 +44,9 @@ from ..codec.constants import B_FRAME, MAX_REORDER_BUFFER
 from ..device import resolve_device
 from ..enc.encoder import (Encoder, EncoderParams, RefFrame,
                            _reorder_frame_offset, _log2i)
+from ..enc.fused import release
 from ..ops.interp import interpolate_frames
+from ..ops.interp_fused import run_interp
 from .mesh import Made, Slot
 
 
@@ -74,13 +83,29 @@ class _PendingRef(RefFrame):
         return RefFrame.of_padded(*planes, self.frame_num, host=self._host)
 
 
+@contextlib.contextmanager
+def _in_flight(batch):
+    """On an error in the body, give back the lane locks that the fused
+    frames still in `batch` took at their measure (enc/fused.release)."""
+    try:
+        yield
+    except BaseException:
+        for _, _, ctx, _ in batch:
+            if ctx is not None:
+                release(ctx)
+        raise
+
+
 class ShardedEncoder:
     """Encode a sequence with dependency-level frames in flight
     concurrently, one per slot: `devices` lists a device per slot (one
     card twice: two streams on it); every visible card by default.
-    Byte-identical to the sequential encoder."""
+    fused: the Encoder's CUDA graphs on each slot's lane (the default),
+    or its eager stages (False). Byte-identical to the sequential
+    encoder either way."""
 
-    def __init__(self, params: EncoderParams, devices=None):
+    def __init__(self, params: EncoderParams, devices=None,
+                 fused: bool = True):
         if devices is None:
             dev = resolve_device("cuda")
             devices = [torch.device("cuda", i)
@@ -88,9 +113,8 @@ class ShardedEncoder:
                 if dev.type == "cuda" else [dev]
         self.slots = [Slot(resolve_device(d)) for d in devices]
         self.params = params
-        # the eager path: the clones run at once on several streams, which
-        # the shared graphs of the fused path (enc/fused.py) do not allow
-        self.enc = Encoder(params, device=self.slots[0].device, fused=False)
+        self.fused = fused
+        self.enc = Encoder(params, device=self.slots[0].device, fused=fused)
         self.enc._defer_interp = True
 
     # -- one planned frame ------------------------------------------------
@@ -145,8 +169,9 @@ class ShardedEncoder:
             fe.refs = [local.get(id(r), r) for r in fe.refs]
             if pend is not None:
                 r1, r2, ratio, pos = pend
-                out = interpolate_frames(local[id(r1)], local[id(r2)],
-                                         ratio, pos)
+                args = (local[id(r1)], local[id(r2)], ratio, pos)
+                out = run_interp(slot.device, *args) if self.fused \
+                    else interpolate_frames(*args)
                 fe.interp_frame = RefFrame.of_padded(out[3], out[4], out[5],
                                                      fe.frame_num)
                 if not self.params.device_encode:
@@ -155,6 +180,12 @@ class ShardedEncoder:
                 torch.from_numpy(np.ascontiguousarray(a)).to(slot.device)
                 for a in fe.org_frame)
             return fe.encode_frame_begin(w)
+
+    def _free_slot(self, batch):
+        """The first slot with no frame of `batch` (the frames in flight)
+        on it, or None."""
+        busy = {id(b[3]) for b in batch}
+        return next((s for s in self.slots if id(s) not in busy), None)
 
     # -- sequence loop ----------------------------------------------------
 
@@ -200,7 +231,7 @@ class ShardedEncoder:
         batch = []   # staged (fe, w, ctx, slot) awaiting drain
         first_frame = True
 
-        with open(out_path, "wb") as out:
+        with open(out_path, "wb") as out, _in_flight(batch):
 
             def drain_one():
                 """Finish the OLDEST in-flight frame only: a frame whose
@@ -252,7 +283,7 @@ class ShardedEncoder:
 
                 for fe, pend in plans:
                     while not self._deps_ready(fe, pend) \
-                            or len(batch) >= len(self.slots):
+                            or self._free_slot(batch) is None:
                         drain_one()
                     if mirror:
                         # one mirror frame at a time, on the master's
@@ -261,7 +292,7 @@ class ShardedEncoder:
                         fe.rec_y, fe.rec_u, fe.rec_v = \
                             enc.rec_y, enc.rec_u, enc.rec_v
                         enc.mirror.enc = fe
-                    slot = self.slots[len(batch) % len(self.slots)]
+                    slot = self._free_slot(batch)
                     w = w0 if first_frame else BitWriter()
                     first_frame = False
                     ctx = self._begin(fe, pend, slot, w)

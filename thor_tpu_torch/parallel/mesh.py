@@ -56,6 +56,7 @@ processes may share one card.
 from __future__ import annotations
 
 import contextlib
+import itertools
 
 import torch
 
@@ -65,26 +66,34 @@ from ..dec.reconstruct import (band_inputs, band_rows, filter_rows,
                                predict_planes, reconstruct_frame,
                                residual_planes, to_device)
 from ..device import resolve_device
+from ..ops import graphs as G
 
 HALO = 64       # luma rows of halo above and below a band's filter slice
+FILTER_KEYS = ("ddp", "beta", "tc", "tcC", "m8y", "m8u", "m8v")
 
 
 class Slot:
-    """One cell of the mesh: a device and, on a card, its own stream."""
+    """One cell of the mesh: a device and, on a card, its own stream. The
+    slot's CUDA graphs live on its own lane (ops/graphs): its stream, or
+    on the CPU its own tag."""
 
-    __slots__ = ("device", "stream")
+    __slots__ = ("device", "stream", "tag")
+    _tags = itertools.count()
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" \
             else None
+        self.tag = None if self.stream is not None else \
+            f"slot{next(Slot._tags)}"
 
     @contextlib.contextmanager
     def active(self):
         """Run the body on this slot: its card and stream current (rule
-        (b)); nothing on a CPU slot."""
+        (b)); on a CPU slot only its lane."""
         if self.stream is None:
-            yield
+            with G.tagged(self.tag):
+                yield
             return
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             yield
@@ -250,12 +259,11 @@ def _reconstruct_banded(row, cfg, inp, refs, luts_on):
             rr = [RefFrame(*m.on(s), None) for m in refs]
             y, uv = predict_planes(bcfg, binp, rr, luts_on(s), ry, rc)
             parts.append(Made((y, uv, ry, rc), s))
-    fkeys = ("ddp", "beta", "tc", "tcC", "m8y", "m8u", "m8v")
     with s0.active():
         got = [p.on(s0) for p in parts]
         y, uv, ry, rc = (torch.cat([g[k] for g in got], 1 if k % 2 else 0)
                          for k in range(4))
-        finp = to_device({k: inp[k] for k in ("it_y", "it_c") + fkeys
+        finp = to_device({k: inp[k] for k in ("it_y", "it_c") + FILTER_KEYS
                           if k in inp}, s0.device)
         y, uv = intra_planes(finp, y, uv, ry, rc)
         u, v = uv[0], uv[1]
@@ -271,7 +279,7 @@ def _reconstruct_banded(row, cfg, inp, refs, luts_on):
     for (r0, r1, s), (a, sl) in zip(bands, slices):
         with s.active():
             sinp = finp if s is s0 else to_device(
-                {k: inp[k] for k in fkeys if k in inp}, s.device)
+                {k: inp[k] for k in FILTER_KEYS if k in inp}, s.device)
             fy, fu, fv = filter_rows(cfg, sinp, *sl.on(s), r0=a)
             o, oc = r0 - a, (r0 - a) // 2
             kept.append(Made((fy[o:o + r1 - r0],
@@ -284,7 +292,8 @@ def _reconstruct_banded(row, cfg, inp, refs, luts_on):
         return Made(planes, s0), Made(padded, s0)
 
 
-def sharded_reconstruct(mesh: Mesh, frames, bipred: int = 0):
+def sharded_reconstruct(mesh: Mesh, frames, bipred: int = 0,
+                        fused: bool = True):
     """Reconstruct one dependency level over the mesh.
 
     frames: per frame of the level, (cfg, inputs, refs) with the host
@@ -293,7 +302,19 @@ def sharded_reconstruct(mesh: Mesh, frames, bipred: int = 0):
     row another process owns. Frame j runs on gop row mesh.row_of(j).
     Returns per frame (planes, padded): Made on the row's tile-0 slot
     ((y, u, v) uint8 and their edge-padded copies), or None where None was
-    given. bipred: the sequence header's bipred flag (the MC tables)."""
+    given. bipred: the sequence header's bipred flag (the MC tables).
+
+    fused=True (the default; thor_tpu jits the level): on CUDA graphs on
+    the slots' lanes (ops/graphs). At tile 1 a frame is packed as the
+    Decoder packs it (dec/fused.bucket_inputs, pack_frame) and replays
+    its frame signature's graph on its slot (dec/fused.run_frame); at
+    tile > 1 it runs parallel/fused.reconstruct_banded's band, intra and
+    filter programs. fused=False queues the stages eagerly:
+    dec/reconstruct.reconstruct_frame at tile 1, _reconstruct_banded
+    above it."""
+    from ..dec import fused as DF
+    from .fused import reconstruct_banded
+
     def luts_on(s):
         return mesh.luts(bipred, s)
 
@@ -306,11 +327,19 @@ def sharded_reconstruct(mesh: Mesh, frames, bipred: int = 0):
         cfg, inp, refs = fr
         if len(row) == 1:
             s = row[0]
+            if fused:
+                pf = DF.pack_frame(cfg, DF.bucket_inputs(cfg, inp), bipred,
+                                   pin=s.device.type == "cuda")
             with s.active():
-                planes, padded = reconstruct_frame(
-                    cfg, to_device(inp, s.device),
-                    [RefFrame(*m.on(s), None) for m in refs], luts_on(s))
+                rr = [RefFrame(*m.on(s), None) for m in refs]
+                if fused:
+                    planes, padded = DF.run_frame(s.device, pf, rr)
+                else:
+                    planes, padded = reconstruct_frame(
+                        cfg, to_device(inp, s.device), rr, luts_on(s))
                 out.append((Made(planes, s), Made(padded, s)))
+        elif fused:
+            out.append(reconstruct_banded(row, cfg, inp, refs, bipred))
         else:
             out.append(_reconstruct_banded(row, cfg, inp, refs, luts_on))
     return out

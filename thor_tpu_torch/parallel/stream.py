@@ -13,11 +13,16 @@ have levels of one frame and use the tile axis alone.
 
 Where it differs from thor_tpu's:
 - a frame's program is queued on its own slot as it is, so nothing pads a
-  level to one common batch (see parallel/mesh.py);
+  level to one common batch (see parallel/mesh.py); with fused=True (the
+  default) it replays CUDA graphs on the slot's lane (ops/graphs: each
+  slot's stream has its own entries, pool and lock): the Decoder's frame
+  graph at tile 1 (dec/fused.py), the band, intra and filter programs of
+  parallel/fused.py at tile > 1; fused=False queues the stages eagerly;
 - the interpolated reference of an RA / HDB frame is synthesized on the
-  frame's tile-0 slot by ops/interp (kernels 3-5), as the port's
-  Decoder(fused=False) makes it, not on the host; like the frame
-  program it stays on the eager stages (no CUDA graph: ops/graphs);
+  frame's tile-0 slot (kernels 3-5), not on the host: with fused=True a
+  replay of its signature's graph on that slot's lane
+  (ops/interp_fused.run_interp), as the Decoder makes it, with
+  fused=False by ops/interp stage by stage;
 - references stay on the device between levels; only yielded frames are
   copied to the host, into pinned memory (in a multi-process run, a
   level's frames are gathered on every host);
@@ -43,6 +48,7 @@ from ..dec.parse import FrameParser, SequenceHeader
 from ..dec.syntax_inputs import syntax_to_native
 from ..native import lib, parse_frame, seqhdr_from_python
 from ..ops import interp
+from ..ops.interp_fused import run_interp
 from ..ops.kernels import edge_pad
 from .mesh import Made, fetch_to_host, make_decode_mesh, \
     sharded_reconstruct
@@ -85,11 +91,15 @@ class ShardedDecoder:
     lookahead: how many frames the parse runs ahead of reconstruction; it
     must cover a sub-GOP to expose the B levels. level_chunk: the most
     frames of a level reconstructed at once (0: the THOR_LEVEL_CHUNK
-    environment variable, else no bound; 1 reconstructs frame by frame)."""
+    environment variable, else no bound; 1 reconstructs frame by frame).
+    fused: CUDA graphs on the slots' lanes (the default; on the CPU the
+    same programs without a graph), or the eager stages (False). A
+    capture that fails raises."""
 
     def __init__(self, mesh=None, gop: int = 0, tile: int = 0,
                  devices=None, parse: str = "native",
-                 lookahead: int = 32, level_chunk: int = 0):
+                 lookahead: int = 32, level_chunk: int = 0,
+                 fused: bool = True):
         if parse not in PARSERS:
             raise ValueError(f"parse must be one of {PARSERS}")
         self.mesh = mesh if mesh is not None else make_decode_mesh(
@@ -100,6 +110,7 @@ class ShardedDecoder:
         self.lookahead = lookahead
         self.level_chunk = level_chunk or int(
             os.environ.get("THOR_LEVEL_CHUNK", "0") or 0)
+        self.fused = fused
         self.mc_clamped = 0
         self.last_level_sizes = []
 
@@ -224,12 +235,13 @@ class ShardedDecoder:
                             fr.host, (PAD_Y, PAD_C, PAD_C))), slot)
             return fr.ref
 
+        synth = (lambda s, *a: run_interp(s.device, *a)) if self.fused \
+            else (lambda s, *a: interp.interpolate_frames(*a))
+
         def interp_made(ent, slot):
             """The interpolated reference of a frame, synthesized on its
-            slot (offsets as dec/decoder.Decoder.interp_pair) stage by
-            stage: the slots dispatch on several streams at once, and the
-            graphs of ops/interp_fused share one pool per device, whose
-            replays run one at a time."""
+            slot (offsets as dec/decoder.Decoder.interp_pair): a replay on
+            the slot's lane, or stage by stage."""
             r1, r2 = ent['interp_pair']
             dfn = ent['nf'].hdr.display_frame_num
             off1 = r2.frame_num - dfn
@@ -241,7 +253,7 @@ class ShardedDecoder:
             with slot.active():
                 p1, p2 = (RefFrame(*ref_made(r, slot).on(slot), r.frame_num)
                           for r in (r1, r2))
-                out = interp.interpolate_frames(p1, p2, off1 + off2, off2)
+                out = synth(slot, p1, p2, off1 + off2, off2)
                 return Made(out[3:], slot)
 
         while True:
@@ -279,7 +291,8 @@ class ShardedDecoder:
                 work.append((cfg, inp, [
                     ref_made(window[r], s0) if r >= 0 else interp_ref
                     for r in slots]))
-            results = sharded_reconstruct(mesh, work, seq.bipred)
+            results = sharded_reconstruct(mesh, work, seq.bipred,
+                                          fused=self.fused)
             mine = {}
             for j, i in enumerate(level):
                 if results[j] is not None:

@@ -1,7 +1,7 @@
 """One process of a multi-process sharded decode.
 
     python -m thor_tpu_torch.parallel.worker <coordinator> <nproc> <pid> \
-        <bitstream> <golden> [tile] [--device cpu]
+        <bitstream> <golden> [tile] [--device cpu] [--eager]
 
 Counterpart of tools/dist_decode_worker.py. Each of the nproc processes
 brings up torch.distributed over gloo (coordinator: 'host:port' of
@@ -10,8 +10,10 @@ frames of its own gop row of a nproc x tile mesh (tile slots on card pid
 modulo the visible cards, each on a stream of its own; --device cpu: CPU
 slots); each level's planes are all-gathered to every process
 (parallel/mesh.fetch_to_host). golden is a *_dec.yuv file or a
-*_dec.sha256 file. Prints "DIST_OK <sha256>" when the decode equals the
-golden, else "DIST_MISMATCH" and exits 1.
+*_dec.sha256 file. The slots replay CUDA graphs on their lanes
+(ShardedDecoder(fused=True)); --eager queues the stages one by one.
+Prints "DIST_OK <sha256>" when the decode equals the golden, else
+"DIST_MISMATCH" and exits 1.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="the slots' device (default: card pid modulo the "
                          "visible cards)")
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager stages (ShardedDecoder(fused=False))")
     args = ap.parse_args(argv)
 
     import torch
@@ -52,7 +56,8 @@ def main(argv=None):
             device = f"cuda:{args.pid % n}" if n else "cuda"
         mesh = make_decode_mesh([device], gop=args.nproc, tile=args.tile)
         h = hashlib.sha256()
-        for planes in ShardedDecoder(mesh).iter_frames(args.bitstream):
+        sd = ShardedDecoder(mesh, fused=not args.eager)
+        for planes in sd.iter_frames(args.bitstream):
             for p in planes:
                 h.update(p.tobytes())
         gold = Path(args.golden)
