@@ -431,7 +431,7 @@ def check_host_golden(name, tmp_path):
     assert out.read_bytes() == golden_path(name).read_bytes()
     assert len(recons) == fields["num_frames"]
     assert [set(t) for t in enc.frame_times] == \
-        [{"search", "filters"}] * len(recons)
+        [{"search", "filters", "waits"}] * len(recons)
     synth = [f.calls - k for f, k in zip(plains, c0)]
     assert all(synth) == bool(fields.get("interp_ref"))
     assert _same_frames(decode_file(str(out), device="cpu"), recons)

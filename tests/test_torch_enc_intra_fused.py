@@ -98,7 +98,8 @@ def test_fused_intra_writes_thor_tpu_bytes_and_equals_eager(name, tmp_path):
     assert data == golden_path(name).read_bytes() == eager
     assert _same(recons, recons0)
     assert [set(t) for t in enc.frame_times] == \
-        [set(t) for t in enc0.frame_times]
+        [set(t) for t in enc0.frame_times] == \
+        [{"search", "scan", "emit", "filters", "tus", "waits"}] * len(recons)
     entries = [e for e in G.CACHE.entries.values()
                if isinstance(e, FI.IntraEntry)]
     assert len(entries) == 1 and len(entries[0].finals) == 1

@@ -71,7 +71,8 @@ def test_cpu_encode_equals_thor_tpu_stream(name, tmp_path):
                                      parse="python" if small else "native"),
                         recons)
     assert [set(t) for t in enc.frame_times] == [
-        {"search", "scan", "emit", "filters", "tus"}] * len(recons)
+        {"search", "scan", "emit", "filters", "tus", "waits"}] \
+        * len(recons)
 
 
 @pytest.mark.parametrize("width,height,extra", [

@@ -83,3 +83,51 @@ def test_profile_decode_host_stages_through_the_timer():
                       "pack_ms_per_frame"}
     assert r["parse_ms_per_frame"] > 0 and r["build_ms_per_frame"] > 0
     assert r["pack_ms_per_frame"] > 0
+
+
+def test_span_without_a_profiler_opens_no_range(monkeypatch):
+    """With no profiler on, span keeps its time and opens no
+    record_function (so no profiler event); with one on, each span is an
+    event. (StageTimer.stage runs on span: its report is held to
+    thor_tpu's above.)"""
+    opened = []
+    real = torch.profiler.record_function
+
+    def watched(*a, **kw):
+        opened.append(a[0])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(torch.profiler, "record_function", watched)
+    times = {"measure": 0.5}
+    with T1.span("enc.measure", times, "measure"):
+        pass
+    with T1.span("enc.measure.fetch"):
+        pass
+    assert opened == [] and times["measure"] >= 0.5
+    with T1.device_trace(None, device="cpu") as prof:
+        with T1.span("enc.frame.P", args="3"):
+            with T1.span("enc.measure", times, "measure"):
+                pass
+    assert opened == ["enc.frame.P", "enc.measure"]
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert "enc.frame.P" in names and "enc.measure" in names
+
+
+def test_waits_are_counted_per_thread():
+    import threading
+    seen = {}
+
+    def count(k):
+        w0 = T1.waits()
+        for _ in range(k):
+            T1.count_wait()
+        seen[k] = T1.waits() - w0
+
+    w0 = T1.waits()
+    threads = [threading.Thread(target=count, args=(k,)) for k in (2, 5)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    T1.count_wait()
+    assert seen == {2: 2, 5: 5} and T1.waits() - w0 == 1

@@ -34,7 +34,6 @@ a failing C walk or emit, or a kernel that fails, raises.
 from __future__ import annotations
 
 import math
-import time
 
 import numpy as np
 import torch
@@ -51,6 +50,7 @@ from ..ops.banded_mc import M_CHROMA, M_LUMA, mc_pred_banded
 from ..ops.coeff_bits import coeff_bits_batch
 from ..ops.enc_intra import encode_scan
 from ..ops.mc import build_mc_records, mc_frame
+from ..utils.tracing import count_wait, span
 from . import fused as FU
 from .device_intra import (intra_split_decisions, scan_records,
                            search_intra_frame_dev, search_intra_frame_maps)
@@ -67,7 +67,8 @@ I32 = torch.int32
 
 def _sync(dev):
     """Wait for the current stream of `dev`: a stage's time ends there,
-    and frames on other streams go on."""
+    and frames on other streams go on. Counted on the CPU too."""
+    count_wait()
     if dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()
 
@@ -687,20 +688,18 @@ def _measure(org, refs, R, K_uni, has_bi, bslot0, bslot1, sign, sign_bi,
     seconds of each, ended by a wait for the device."""
     dev = org[0].device
     H, W = org[0].shape
-    t0 = time.perf_counter()
-    me = me_frame(org[0], refs[0], lam_me, int(p.enable_bipred))
-    variants = motion_variants(me, H, W, R, has_bi, bslot0, bslot1, sign,
-                               sign_bi)
-    if times is not None:
-        _sync(dev)
-        t1 = time.perf_counter()
-        times["me"] = t1 - t0
-    trials = {s: trial_coding(org, refs, variants[s], s, qpY, qpC, sign,
-                              sign_bi, luts=luts_np, k_bi=K_uni,
-                              **_trial_flags(p, s)) for s in SIZES}
-    if times is not None:
-        _sync(dev)
-        times["trials"] = time.perf_counter() - t1
+    with span("enc.me", times, "me"):
+        me = me_frame(org[0], refs[0], lam_me, int(p.enable_bipred))
+        variants = motion_variants(me, H, W, R, has_bi, bslot0, bslot1,
+                                   sign, sign_bi)
+        if times is not None:
+            _sync(dev)
+    with span("enc.trials", times, "trials"):
+        trials = {s: trial_coding(org, refs, variants[s], s, qpY, qpC, sign,
+                                  sign_bi, luts=luts_np, k_bi=K_uni,
+                                  **_trial_flags(p, s)) for s in SIZES}
+        if times is not None:
+            _sync(dev)
     return variants, trials
 
 
@@ -759,12 +758,11 @@ def measure_inter_frame_device(enc, org_y, org_u, org_v):
         variants, trials = _measure(org, refs_d, R, K_uni, has_bi, bslot0,
                                     bslot1, sign_d, sign_bi_d, lam_me_d, qpY,
                                     qpC, p, luts_np, times)
-        t2 = time.perf_counter()
-        intra = search_intra_frame_maps(org_y, org_u, org_v, qpY, qpC, lam,
-                                        W, H, p.encoder_speed > 1,
-                                        enc.num_intra_modes,
-                                        intra_quant=False)
-        times["intra_search"] = time.perf_counter() - t2
+        with span("enc.intra_search", times, "intra_search"):
+            intra = search_intra_frame_maps(org_y, org_u, org_v, qpY, qpC,
+                                            lam, W, H, p.encoder_speed > 1,
+                                            enc.num_intra_modes,
+                                            intra_quant=False)
         ctx = dict(fused=False, org=org, refs=refs_d, variants=variants,
                    trials=trials, intra=intra, sign=sign_d,
                    sign_bi=sign_bi_d, sign_np=sign, sign_bi_np=sign_bi,
@@ -793,23 +791,23 @@ def measure_inter_frame_device(enc, org_y, org_u, org_v):
 
 def _decide(enc, ctx, meas, intra):
     """The C walk over the host maps and, with encoder_speed <= 1, the
-    second chance and the walk again: the leaves. Records "decide" and
-    "second_chance" in enc.frame_times[-1]."""
+    second chance and the walk again: the leaves. Adds "decide" and
+    "second_chance" to enc.frame_times[-1] (spans enc.decide and
+    enc.second_chance, of it enc.second_chance.walk, the walk again)."""
     W, H = enc.width, enc.height
     times = enc.frame_times[-1]
-    t0 = time.perf_counter()
-    intra_modes, _, intra_costs = intra_split_decisions(
-        intra, W, H, return_costs=True)
-    leaves = decide_frame(enc, meas, intra_modes, intra_costs, ctx["lam"],
-                          ctx["lam_me"])
-    t1 = time.perf_counter()
-    times["decide"] = t1 - t0
-    if enc.params.encoder_speed <= 1 and (
-            FU.second_chance(enc, ctx, leaves) if ctx["fused"]
-            else second_chance(enc, ctx, meas, leaves)):
+    with span("enc.decide", times, "decide"):
+        intra_modes, _, intra_costs = intra_split_decisions(
+            intra, W, H, return_costs=True)
         leaves = decide_frame(enc, meas, intra_modes, intra_costs,
                               ctx["lam"], ctx["lam_me"])
-    times["second_chance"] = time.perf_counter() - t1
+    with span("enc.second_chance", times, "second_chance"):
+        if enc.params.encoder_speed <= 1 and (
+                FU.second_chance(enc, ctx, leaves) if ctx["fused"]
+                else second_chance(enc, ctx, meas, leaves)):
+            with span("enc.second_chance.walk"):
+                leaves = decide_frame(enc, meas, intra_modes, intra_costs,
+                                      ctx["lam"], ctx["lam_me"])
     return leaves
 
 
@@ -843,45 +841,44 @@ def finish_inter_frame_device(enc, w, ctx):
     dev = org[0].device
     qpY, qpC = ctx["qpY"], ctx["qpC"]
 
-    t0 = time.perf_counter()
-    meas = {}
-    for s in SIZES:
-        meas[s] = {k: a.cpu().numpy() for k, a in ctx["variants"][s].items()}
-        meas[s].update({k: trials[s][k].cpu().numpy()
-                        for k in MEAS_KEYS if k in trials[s]})
-        meas[s]["K_uni"] = ctx["K_uni"]
-    times["fetch"] = time.perf_counter() - t0
+    # the maps' fetch counts toward "decide"
+    with span("enc.decide", times, "decide"):
+        meas = {}
+        for s in SIZES:
+            meas[s] = {k: a.cpu().numpy()
+                       for k, a in ctx["variants"][s].items()}
+            meas[s].update({k: trials[s][k].cpu().numpy()
+                            for k in MEAS_KEYS if k in trials[s]})
+            meas[s]["K_uni"] = ctx["K_uni"]
     leaves = _decide(enc, ctx, meas, ctx["intra"])
-    times["decide"] += times.pop("fetch")
-    t2 = time.perf_counter()
 
-    plan = final_plan(leaves, ctx["sign_np"], ctx["sign_bi_np"], H, W, dev)
-    y, u, v, q16y, q16c = final_frame(
-        ctx["refs"], org, ctx["trials"], plan, qpY, qpC,
-        mc_luts(int(p.enable_bipred), dev), p.encoder_speed > 1, H, W)
-    if ctx.get("rec") is not None:
-        ctx["rec"]["plan"] = plan
-    intra = [lf for lf in leaves if lf.mode == MODE_INTRA]
-    intra_q = {}
-    if intra:
-        q16c = q16c.cpu().numpy()
-        intra_q = {"qy": q16y[:, 0].cpu().numpy(), "qu": q16c[:, 0],
-                   "qv": q16c[:, 1]}
-        # the zero-run pass never clears a level, so "any level nonzero" is
-        # the quantizer's cbp
-        for c in "yuv":
-            intra_q["c" + c] = (intra_q["q" + c] != 0).any(axis=(1, 2))
-        intra_q["index"] = {(lf.ypos, lf.xpos): i
-                            for i, lf in enumerate(intra)}
-    coeff_host = gather_coeffs(leaves, ctx["trials"])
-    t3 = time.perf_counter()
-    times["final"] = t3 - t2
+    with span("enc.final", times, "final"):
+        plan = final_plan(leaves, ctx["sign_np"], ctx["sign_bi_np"], H, W,
+                          dev)
+        y, u, v, q16y, q16c = final_frame(
+            ctx["refs"], org, ctx["trials"], plan, qpY, qpC,
+            mc_luts(int(p.enable_bipred), dev), p.encoder_speed > 1, H, W)
+        if ctx.get("rec") is not None:
+            ctx["rec"]["plan"] = plan
+        intra = [lf for lf in leaves if lf.mode == MODE_INTRA]
+        intra_q = {}
+        if intra:
+            q16c = q16c.cpu().numpy()
+            intra_q = {"qy": q16y[:, 0].cpu().numpy(), "qu": q16c[:, 0],
+                       "qv": q16c[:, 1]}
+            # the zero-run pass never clears a level, so "any level
+            # nonzero" is the quantizer's cbp
+            for c in "yuv":
+                intra_q["c" + c] = (intra_q["q" + c] != 0).any(axis=(1, 2))
+            intra_q["index"] = {(lf.ypos, lf.xpos): i
+                                for i, lf in enumerate(intra)}
+        coeff_host = gather_coeffs(leaves, ctx["trials"])
     times["pus"] = plan["npu"]
     times["intra_leaves"] = len(intra)
 
-    enc.deblock_data.reset()
-    emit_frame(enc, w, leaves, meas, coeff_host, intra_q)
-    times["emit"] = time.perf_counter() - t3
+    with span("enc.emit", times, "emit"):
+        enc.deblock_data.reset()
+        emit_frame(enc, w, leaves, meas, coeff_host, intra_q)
     return y, u, v
 
 

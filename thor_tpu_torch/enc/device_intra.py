@@ -23,8 +23,6 @@ Per I frame:
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -35,6 +33,7 @@ from ..ops import kernels as K
 from ..ops.coeff_bits import coeff_bits_batch
 from ..ops.enc_intra import encode_scan
 from ..ops.intra import _predict, build_intra_records
+from ..utils.tracing import span
 from .block import BlockInfo, BlockParam
 from .syntax import (INTRA_LEN_8, INTRA_LEN_10, INTRA_MODE_MAP_8,
                      INTRA_MODE_MAP_10, write_block, write_delta_qp,
@@ -291,9 +290,9 @@ def encode_intra_frame_device(enc, w, org_y, org_u, org_v):
     planes as int32 tensors on the encoder's device. Writes the frame's
     block syntax to `w` through the exact host writers and returns the
     unfiltered reconstruction (y, u, v) as int32 tensors on the device.
-    Appends the host-clock seconds of search / scan / emit to
-    enc.frame_times[-1]; each span ends where the host needs the device's
-    results anyway. On an Encoder(record=True) it appends the frame's
+    Adds the host-clock seconds of search / scan / emit to
+    enc.frame_times[-1] (spans enc.search, enc.scan, enc.emit); each ends
+    where the host needs the device's results anyway. On an Encoder(record=True) it appends the frame's
     record to enc.intra_record (enc/fused_intra.replay_intra_frame; the
     filters add their side-info map and CLPF candidates)."""
     W, H = enc.width, enc.height
@@ -304,38 +303,35 @@ def encode_intra_frame_device(enc, w, org_y, org_u, org_v):
     fast = p.encoder_speed > 1
     times = enc.frame_times[-1]
 
-    t0 = time.perf_counter()
-    modes, split = search_intra_frame(org_y, org_u, org_v, qpY, qpC,
-                                      enc.lambda_, W, H, fast,
-                                      enc.num_intra_modes)
-    tus = _walk_tree(split, modes, W, H)
-    t1 = time.perf_counter()
-    times["search"] = t1 - t0
+    with span("enc.search", times, "search"):
+        modes, split = search_intra_frame(org_y, org_u, org_v, qpY, qpC,
+                                          enc.lambda_, W, H, fast,
+                                          enc.num_intra_modes)
+        tus = _walk_tree(split, modes, W, H)
 
-    recs_y, recs_c = scan_records(tus, W, H)
-    y, q16y = encode_scan(
-        torch.zeros((1, H, W), dtype=I32, device=dev), org_y[None],
-        torch.from_numpy(recs_y).to(dev), qpY, fast, True)
-    uv, q16c = encode_scan(
-        torch.zeros((2, H // 2, W // 2), dtype=I32, device=dev),
-        torch.stack([org_u, org_v]), torch.from_numpy(recs_c).to(dev), qpC,
-        fast, True)
-    if enc.intra_record is not None:
-        enc.intra_record.append(
-            {"frame_num": enc.frame_num, "org": (org_y, org_u, org_v),
-             "fused": None, "H": H, "W": W, "qpY": qpY, "qpC": qpC,
-             "fast": fast, "nmodes": enc.num_intra_modes,
-             "lam": torch.tensor(enc.lambda_, dtype=torch.float32,
-                                 device=dev),
-             "recs": (torch.from_numpy(recs_y).to(dev),
-                      torch.from_numpy(recs_c).to(dev))})
-    q16y = q16y[:, 0].cpu().numpy()
-    q16u, q16v = (a for a in q16c.cpu().numpy().transpose(1, 0, 2, 3))
-    t2 = time.perf_counter()
-    times["scan"] = t2 - t1
+    with span("enc.scan", times, "scan"):
+        recs_y, recs_c = scan_records(tus, W, H)
+        y, q16y = encode_scan(
+            torch.zeros((1, H, W), dtype=I32, device=dev), org_y[None],
+            torch.from_numpy(recs_y).to(dev), qpY, fast, True)
+        uv, q16c = encode_scan(
+            torch.zeros((2, H // 2, W // 2), dtype=I32, device=dev),
+            torch.stack([org_u, org_v]), torch.from_numpy(recs_c).to(dev),
+            qpC, fast, True)
+        if enc.intra_record is not None:
+            enc.intra_record.append(
+                {"frame_num": enc.frame_num, "org": (org_y, org_u, org_v),
+                 "fused": None, "H": H, "W": W, "qpY": qpY, "qpC": qpC,
+                 "fast": fast, "nmodes": enc.num_intra_modes,
+                 "lam": torch.tensor(enc.lambda_, dtype=torch.float32,
+                                     device=dev),
+                 "recs": (torch.from_numpy(recs_y).to(dev),
+                          torch.from_numpy(recs_c).to(dev))})
+        q16y = q16y[:, 0].cpu().numpy()
+        q16u, q16v = (a for a in q16c.cpu().numpy().transpose(1, 0, 2, 3))
     times["tus"] = len(tus)
-    emit_intra_frame(enc, w, tus, q16y, q16u, q16v)
-    times["emit"] = time.perf_counter() - t2
+    with span("enc.emit", times, "emit"):
+        emit_intra_frame(enc, w, tus, q16y, q16u, q16v)
     return y[0], uv[0], uv[1]
 
 

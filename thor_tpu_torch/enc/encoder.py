@@ -19,7 +19,6 @@ block syntax, the decisions and the CLPF bits are host work.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -37,6 +36,7 @@ from ..ops import kernels as K
 from ..ops.interp import interpolate_frames
 from ..ops.interp_fused import run_interp
 from ..utils.checkpoint import load_encoder_state, save_encoder_state
+from ..utils.tracing import count_wait, span, waits
 from .device_inter import (clpf_apply, clpf_cand_masks, clpf_sb_sums,
                            finish_inter_frame_device,
                            measure_inter_frame_device)
@@ -45,6 +45,8 @@ from .fused_intra import encode_intra_frame_fused
 from .host import HostMirror, HostRef
 
 I32 = torch.int32
+# a frame span's name: enc.frame.<kind>
+FRAME_KIND = {I_FRAME: "I", P_FRAME: "P", B_FRAME: "B"}
 
 
 @dataclass
@@ -266,7 +268,13 @@ class Encoder:
     count "tus"; device P and B frames: measure (or,
     with fused=False, me, trials and intra_search), decide,
     second_chance, final, emit, filters, with the counts "pus" of the MC
-    and "intra_leaves" of the intra scan). With record=True,
+    and "intra_leaves" of the intra scan), and, from encode_sequence,
+    "waits": the places the frame's host needed a device result
+    (utils/tracing.count_wait). Each stage is a span (utils/tracing.span)
+    named enc.<stage>, inside the frame's span enc.frame.<I|P|B> (its
+    args: the frame number) beside enc.upload (the frame's copy to the
+    device), so a torch.profiler trace sets the card's idle gaps against
+    them. With record=True,
     `device_record` holds one record per device P/B frame, the inputs of
     its device work on the device, for
     enc/device_inter.replay_device_frame, and `intra_record` one per
@@ -417,10 +425,9 @@ class Encoder:
                                      for i in range(self.num_ref)):
             return measure_inter_frame_device(self, *org)
         else:
-            t0 = time.perf_counter()
-            y, u, v = (torch.from_numpy(a).to(self.device, I32)
-                       for a in self.mirror.encode_frame(w))
-            self.frame_times[-1]["search"] = time.perf_counter() - t0
+            with span("enc.search", self.frame_times[-1], "search"):
+                y, u, v = (torch.from_numpy(a).to(self.device, I32)
+                           for a in self.mirror.encode_frame(w))
         self._filters(w, y, u, v, org[0], rec)
         return None
 
@@ -463,33 +470,33 @@ class Encoder:
         packed side-info map and the CLPF candidate masks, on the
         device."""
         p = self.params
-        t0 = time.perf_counter()
         H, W = self.height, self.width
-        if rec is not None:
-            rec.update(deblocking=bool(p.deblocking), clpf_cand=None)
-        if p.deblocking:
-            qp = self.frame_qp
-            ddp = self._deblock_fields()
+        with span("enc.filters", self.frame_times[-1], "filters"):
             if rec is not None:
-                rec["ddp"] = ddp
-            dd = K.unpack_ddp(ddp)
-            tc_c = int(TC_TABLE[CHROMA_QP[qp]])
-            y = K.deblock_luma(y, dd, H, W, int(BETA_TABLE[qp]),
-                               int(TC_TABLE[qp]))
-            u = K.deblock_chroma(u, dd, H, W, tc_c)
-            v = K.deblock_chroma(v, dd, H, W, tc_c)
-        if p.clpf:
-            w.putbits(1, 1)
-            w.putbits(1, 0)     # sb_signal: per-SB decision bits follow
-            y, u, v = self._clpf_frame(w, y, u, v, org_y, rec)
-        self.rec_y, self.rec_u, self.rec_v = (
-            t.to(torch.uint8) for t in (y, u, v))
-        if self.device.type == "cuda":
+                rec.update(deblocking=bool(p.deblocking), clpf_cand=None)
+            if p.deblocking:
+                qp = self.frame_qp
+                ddp = self._deblock_fields()
+                if rec is not None:
+                    rec["ddp"] = ddp
+                dd = K.unpack_ddp(ddp)
+                tc_c = int(TC_TABLE[CHROMA_QP[qp]])
+                y = K.deblock_luma(y, dd, H, W, int(BETA_TABLE[qp]),
+                                   int(TC_TABLE[qp]))
+                u = K.deblock_chroma(u, dd, H, W, tc_c)
+                v = K.deblock_chroma(v, dd, H, W, tc_c)
+            if p.clpf:
+                w.putbits(1, 1)
+                w.putbits(1, 0)     # sb_signal: per-SB decision bits follow
+                y, u, v = self._clpf_frame(w, y, u, v, org_y, rec)
+            self.rec_y, self.rec_u, self.rec_v = (
+                t.to(torch.uint8) for t in (y, u, v))
             # the sequence loop reads the frame back right after this, so
             # waiting here costs nothing and closes the stage's time; only
             # this stream, so frames on other streams go on
-            torch.cuda.current_stream(self.device).synchronize()
-        self.frame_times[-1]["filters"] = time.perf_counter() - t0
+            count_wait()
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
 
     def _filters_done(self, w, out):
         """The filters of a fused frame ran in its final program
@@ -497,15 +504,14 @@ class Encoder:
         fetched decision out["bit_sb"] over the candidates of the emit's
         side-info map, and take the filtered planes (rec_y / rec_u /
         rec_v on the device, rec_host fetched)."""
-        t0 = time.perf_counter()
-        if self.params.clpf:
-            w.putbits(1, 1)
-            w.putbits(1, 0)     # sb_signal: per-SB decision bits follow
-            self._write_clpf_bits(w, self._clpf_candidates()[1],
-                                  out["bit_sb"])
-        self.rec_y, self.rec_u, self.rec_v = out["planes"]
-        self.rec_host = out["host"]
-        self.frame_times[-1]["filters"] = time.perf_counter() - t0
+        with span("enc.filters", self.frame_times[-1], "filters"):
+            if self.params.clpf:
+                w.putbits(1, 1)
+                w.putbits(1, 0)     # sb_signal: per-SB decision bits follow
+                self._write_clpf_bits(w, self._clpf_candidates()[1],
+                                      out["bit_sb"])
+            self.rec_y, self.rec_u, self.rec_v = out["planes"]
+            self.rec_host = out["host"]
 
     def _deblock_fields(self):
         """The side-info map packed as the deblocking ops read it (the
@@ -644,17 +650,26 @@ class Encoder:
                     if frame_num < p.skip:
                         continue
                     self.frame_num = frame_num - p.skip
-                    self._setup_frame(num_encoded, sub_gop,
-                                      min_interp_depth, last_PorI)
-                    self.org_y, self.org_u, self.org_v = (
-                        upload(a, self.device) for a in frames[frame_num])
-                    self.encode_frame(w)
-                    out.write(w.flush_frame())
+                    w0 = waits()
+                    kind = FRAME_KIND[self._frame_type(num_encoded,
+                                                       sub_gop)]
+                    with span("enc.frame." + kind, args=str(self.frame_num)):
+                        self._setup_frame(num_encoded, sub_gop,
+                                          min_interp_depth, last_PorI)
+                        with span("enc.upload"):
+                            self.org_y, self.org_u, self.org_v = (
+                                upload(a, self.device)
+                                for a in frames[frame_num])
+                        self.encode_frame(w)
+                        out.write(w.flush_frame())
+                        rec = self.rec_host
+                        if rec is None:
+                            count_wait()
+                            rec = tuple(t.cpu().numpy() for t in (
+                                self.rec_y, self.rec_u, self.rec_v))
+                    self.frame_times[-1]["waits"] = waits() - w0
                     num_encoded += 1
-                    rec_avail[self.frame_num % MAX_REORDER_BUFFER] = \
-                        self.rec_host or tuple(
-                            t.cpu().numpy()
-                            for t in (self.rec_y, self.rec_u, self.rec_v))
+                    rec_avail[self.frame_num % MAX_REORDER_BUFFER] = rec
                     nxt = (last_output + 1) % MAX_REORDER_BUFFER
                     if nxt in rec_avail:
                         last_output += 1
@@ -690,25 +705,29 @@ class Encoder:
                 break
         return display
 
+    def _frame_type(self, num_encoded, sub_gop):
+        """The type of frame self.frame_num: I, P or B by the intra
+        period and the sub-GOP (the first step of _setup_frame)."""
+        p = self.params
+        fn = self.frame_num
+        if p.num_reorder_pics == 0:
+            if p.intra_period > 0:
+                return I_FRAME if num_encoded % p.intra_period == 0 \
+                    else P_FRAME
+            return I_FRAME if num_encoded == 0 else P_FRAME
+        if p.intra_period > 0:
+            return I_FRAME if fn % p.intra_period == 0 else (
+                P_FRAME if fn % sub_gop == 0 else B_FRAME)
+        return I_FRAME if fn == 0 else (
+            P_FRAME if fn % sub_gop == 0 else B_FRAME)
+
     def _setup_frame(self, num_encoded, sub_gop, min_interp_depth,
                      last_PorI):
         """Frame type, QP cascade and reference-list construction
         (enc/mainenc.c:236-495)."""
         p = self.params
         fn = self.frame_num
-        if p.num_reorder_pics == 0:
-            if p.intra_period > 0:
-                ftype = I_FRAME if num_encoded % p.intra_period == 0 \
-                    else P_FRAME
-            else:
-                ftype = I_FRAME if num_encoded == 0 else P_FRAME
-        else:
-            if p.intra_period > 0:
-                ftype = I_FRAME if fn % p.intra_period == 0 else (
-                    P_FRAME if fn % sub_gop == 0 else B_FRAME)
-            else:
-                ftype = I_FRAME if fn == 0 else (
-                    P_FRAME if fn % sub_gop == 0 else B_FRAME)
+        ftype = self._frame_type(num_encoded, sub_gop)
         self.frame_type = ftype
 
         coded_phase = (num_encoded + sub_gop - 2) % sub_gop + 1

@@ -67,7 +67,6 @@ Encoder(fused=False) and ShardedEncoder(fused=False) run).
 from __future__ import annotations
 
 import math
-import time
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -83,6 +82,7 @@ from ..ops import graphs as G, kernels as K
 from ..ops.enc_intra import encode_scan
 from ..ops.intra import NF as INTRA_NF
 from ..ops.mc import NF as MC_NF, mc_frame
+from ..utils.tracing import count_wait, span
 from . import device_inter as DI
 from .device_intra import scan_records, search_intra_frame_dev
 from .device_me import me_frame
@@ -151,7 +151,8 @@ def host_maps(raw, layout):
 
 def fetch(flat):
     """The host's copy of a device buffer: one wait (through a pinned
-    buffer on a card)."""
+    buffer on a card), counted on the CPU too."""
+    count_wait()
     if flat.device.type != "cuda":
         return flat.numpy()
     host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
@@ -549,34 +550,40 @@ def run_measure(dev, sig, org, refs, small):
 def measure_frame(enc, org, refs, sign, sign_bi, has_bi, bslot0, bslot1,
                   qpY, qpC, lam, lam_me):
     """The measure half of a P/B frame on the fused path: one program,
-    one fetch. Returns the context finish_frame drains."""
+    one fetch. Returns the context finish_frame drains. Spans: enc.measure
+    (frame_times "measure"), of it enc.measure.pack, .program (the
+    graph's replay or capture) and .fetch."""
     p = enc.params
     dev = org[0].device
-    t0 = time.perf_counter()
-    c0, ms0 = G.STATS["captures"], G.STATS["capture_ms"]
-    sig = MeasureSig(enc.height, enc.width, enc.num_ref, has_bi, bslot0,
-                     bslot1, int(p.enable_bipred), int(p.enable_tb_split),
-                     int(p.encoder_speed), int(enc.num_intra_modes), qpY,
-                     qpC)
-    _, small = DF.pack_fields(small_fields(lam, lam_me, sign, sign_bi),
-                              pin=dev.type == "cuda")
-    lock = G.lane(dev).lock
-    lock.acquire()              # until the final's fetch (release)
-    try:
-        e, (_, _, flat, layout) = run_measure(dev, sig, org, refs, small)
-        got = host_maps(fetch(flat), layout)
-    except BaseException:
-        lock.release()
-        raise
-    meas = {}
-    for s in DI.SIZES:
-        meas[s] = {k: got[("var", s, k)] for k in DI.VAR_KEYS}
-        meas[s].update({k: got[("meas", s, k)] for k in DI.MEAS_KEYS
-                        if ("meas", s, k) in got})
-        meas[s]["K_uni"] = 3 + enc.num_ref
-    intra = {s: (got[("intra", s, 0)], got[("intra", s, 1)])
-             for s in DI.SIZES}
-    enc.frame_times[-1]["measure"] = time.perf_counter() - t0
+    with span("enc.measure", enc.frame_times[-1], "measure"):
+        c0, ms0 = G.STATS["captures"], G.STATS["capture_ms"]
+        sig = MeasureSig(enc.height, enc.width, enc.num_ref, has_bi, bslot0,
+                         bslot1, int(p.enable_bipred),
+                         int(p.enable_tb_split), int(p.encoder_speed),
+                         int(enc.num_intra_modes), qpY, qpC)
+        with span("enc.measure.pack"):
+            _, small = DF.pack_fields(small_fields(lam, lam_me, sign,
+                                                   sign_bi),
+                                      pin=dev.type == "cuda")
+        lock = G.lane(dev).lock
+        lock.acquire()              # until the final's fetch (release)
+        try:
+            with span("enc.measure.program"):
+                e, (_, _, flat, layout) = run_measure(dev, sig, org, refs,
+                                                      small)
+            with span("enc.measure.fetch"):
+                got = host_maps(fetch(flat), layout)
+        except BaseException:
+            lock.release()
+            raise
+        meas = {}
+        for s in DI.SIZES:
+            meas[s] = {k: got[("var", s, k)] for k in DI.VAR_KEYS}
+            meas[s].update({k: got[("meas", s, k)] for k in DI.MEAS_KEYS
+                            if ("meas", s, k) in got})
+            meas[s]["K_uni"] = 3 + enc.num_ref
+        intra = {s: (got[("intra", s, 0)], got[("intra", s, 1)])
+                 for s in DI.SIZES}
     return dict(fused=True, entry=e, lock=lock, sig=sig, small=small,
                 meas=meas, intra=intra, org=org, sign_np=sign,
                 sign_bi_np=sign_bi, lam=lam, lam_me=lam_me, qpY=qpY,
@@ -595,28 +602,34 @@ def second_chance(enc, ctx, leaves):
     """The second chance on the fused path: the extra program over the
     first walk's unmatched skip candidates, its maps fetched in one wait
     and spliced into the host maps in [uni | extra | bi] order. Returns
-    False when nothing was missing."""
+    False when nothing was missing. Spans: enc.second_chance.collect (the
+    missing candidates, their variants, the pack), .program, .fetch and
+    .splice."""
     W, H = enc.width, enc.height
     meas = ctx["meas"]
-    missing = DI.collect_missing(W, H, leaves, meas)
-    if not any(missing[s] for s in DI.SIZES):
-        return False
-    ev = DI.extra_variants(missing, H, W)
     dev = ctx["org"][0].device
-    _, buf = DF.pack_fields(ev_fields(ev), pin=dev.type == "cuda")
-    _, flat, layout = ctx["entry"].run_extra(buf)
-    got = host_maps(fetch(flat), layout)
-    for s in DI.SIZES:
-        m = meas[s]
-        K_uni = m["K_uni"]
-        ey, ex, es = ev[s]
-        z = np.zeros_like(ey)
-        for k, a in zip(DI.VAR_KEYS, (ey, ex, es, z, z, z, z)):
-            m[k] = DI._insert(m[k], a, K_uni)
-        for k in DI.MEAS_KEYS:
-            if ("meas", s, k) in got:
-                m[k] = DI._insert(m[k], got[("meas", s, k)], K_uni)
-        m["K_uni"] = K_uni + DI.K_EXTRA
+    with span("enc.second_chance.collect"):
+        missing = DI.collect_missing(W, H, leaves, meas)
+        if not any(missing[s] for s in DI.SIZES):
+            return False
+        ev = DI.extra_variants(missing, H, W)
+        _, buf = DF.pack_fields(ev_fields(ev), pin=dev.type == "cuda")
+    with span("enc.second_chance.program"):
+        _, flat, layout = ctx["entry"].run_extra(buf)
+    with span("enc.second_chance.fetch"):
+        got = host_maps(fetch(flat), layout)
+    with span("enc.second_chance.splice"):
+        for s in DI.SIZES:
+            m = meas[s]
+            K_uni = m["K_uni"]
+            ey, ex, es = ev[s]
+            z = np.zeros_like(ey)
+            for k, a in zip(DI.VAR_KEYS, (ey, ex, es, z, z, z, z)):
+                m[k] = DI._insert(m[k], a, K_uni)
+            for k in DI.MEAS_KEYS:
+                if ("meas", s, k) in got:
+                    m[k] = DI._insert(m[k], got[("meas", s, k)], K_uni)
+            m["K_uni"] = K_uni + DI.K_EXTRA
     ctx["extra"] = buf
     return True
 
@@ -687,54 +700,57 @@ def finish_frame(enc, w, ctx, leaves):
     inputs) and "emit" in enc.frame_times[-1], with "pus",
     "intra_leaves", and the graphs the frame captured, "captures" (its
     three programs; "capture", their host seconds, inside the stages'
-    times) and "final_captures" (the final one)."""
+    times) and "final_captures" (the final one). Spans: enc.final, of it
+    enc.final_inputs, enc.final.program and enc.final.fetch; enc.emit."""
     p = enc.params
     times = enc.frame_times[-1]
-    t0 = time.perf_counter()
     dev = ctx["org"][0].device
-    inp, npu, intra, coded = final_inputs(enc, ctx, leaves)
-    layout, buf = DF.pack_fields(inp, pin=dev.type == "cuda")
-    times["final_inputs"] = time.perf_counter() - t0
-    fsig = FinalSig(bool(p.deblocking), bool(p.clpf),
-                    ctx["extra"] is not None, layout)
-    c0 = G.STATS["captures"]
-    try:
-        y, u, v, padded, flat, flayout = ctx["entry"].run_final(fsig, buf)
-        planes = tuple(t.clone() for t in (y, u, v))
-        padded = tuple(t.clone() for t in padded)
-        got = host_maps(fetch(flat), flayout)
-    finally:
-        release(ctx)
-    times["final_captures"] = G.STATS["captures"] - c0
-    times["captures"] = G.STATS["captures"] - ctx["captures0"]
-    times["capture"] = (G.STATS["capture_ms"] - ctx["capture_ms0"]) / 1e3
-    ctx.update(fsig=fsig, fbuf=buf)
-    intra_q = {}
-    if intra:
-        n = len(intra)
-        q16c = got[("q16c",)]
-        intra_q = {"qy": got[("q16y",)][:n, 0], "qu": q16c[:n, 0],
-                   "qv": q16c[:n, 1]}
-        # the zero-run pass never clears a level, so "any level nonzero" is
-        # the quantizer's cbp
-        for c in "yuv":
-            intra_q["c" + c] = (intra_q["q" + c] != 0).any(axis=(1, 2))
-        intra_q["index"] = {(lf.ypos, lf.xpos): i
-                            for i, lf in enumerate(intra)}
-    coeff_host = {}
-    for s in DI.SIZES:
-        if coded[s]:
-            coeff_host[s] = {c: got[("coef", s, c)]
-                             for c in ("qy", "qu", "qv")}
-            coeff_host[s]["index"] = {(lf.ypos, lf.xpos): lf.idx
-                                      for lf in coded[s]}
-    t1 = time.perf_counter()
-    times["final"] = t1 - t0
+    with span("enc.final", times, "final"):
+        with span("enc.final_inputs", times, "final_inputs"):
+            inp, npu, intra, coded = final_inputs(enc, ctx, leaves)
+            layout, buf = DF.pack_fields(inp, pin=dev.type == "cuda")
+        fsig = FinalSig(bool(p.deblocking), bool(p.clpf),
+                        ctx["extra"] is not None, layout)
+        c0 = G.STATS["captures"]
+        try:
+            with span("enc.final.program"):
+                y, u, v, padded, flat, flayout = ctx["entry"].run_final(
+                    fsig, buf)
+                planes = tuple(t.clone() for t in (y, u, v))
+                padded = tuple(t.clone() for t in padded)
+            with span("enc.final.fetch"):
+                got = host_maps(fetch(flat), flayout)
+        finally:
+            release(ctx)
+        times["final_captures"] = G.STATS["captures"] - c0
+        times["captures"] = G.STATS["captures"] - ctx["captures0"]
+        times["capture"] = (G.STATS["capture_ms"]
+                            - ctx["capture_ms0"]) / 1e3
+        ctx.update(fsig=fsig, fbuf=buf)
+        intra_q = {}
+        if intra:
+            n = len(intra)
+            q16c = got[("q16c",)]
+            intra_q = {"qy": got[("q16y",)][:n, 0], "qu": q16c[:n, 0],
+                       "qv": q16c[:n, 1]}
+            # the zero-run pass never clears a level, so "any level
+            # nonzero" is the quantizer's cbp
+            for c in "yuv":
+                intra_q["c" + c] = (intra_q["q" + c] != 0).any(axis=(1, 2))
+            intra_q["index"] = {(lf.ypos, lf.xpos): i
+                                for i, lf in enumerate(intra)}
+        coeff_host = {}
+        for s in DI.SIZES:
+            if coded[s]:
+                coeff_host[s] = {c: got[("coef", s, c)]
+                                 for c in ("qy", "qu", "qv")}
+                coeff_host[s]["index"] = {(lf.ypos, lf.xpos): lf.idx
+                                          for lf in coded[s]}
     times["pus"] = npu
     times["intra_leaves"] = len(intra)
-    enc.deblock_data.reset()
-    DI.emit_frame(enc, w, leaves, ctx["meas"], coeff_host, intra_q)
-    times["emit"] = time.perf_counter() - t1
+    with span("enc.emit", times, "emit"):
+        enc.deblock_data.reset()
+        DI.emit_frame(enc, w, leaves, ctx["meas"], coeff_host, intra_q)
     return {"planes": planes, "padded": padded, "bit_sb": got[("bit_sb",)],
             # copied out of the pinned fetch buffer: a sequence's
             # reconstructions outlive it

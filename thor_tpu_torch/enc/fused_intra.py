@@ -46,7 +46,6 @@ entry) or no final program behind; nothing falls back to the eager path.
 
 from __future__ import annotations
 
-import time
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -58,6 +57,7 @@ from ..dec import fused as DF
 from ..ops import graphs as G, kernels as K
 from ..ops.enc_intra import encode_scan
 from ..ops.intra import NF as INTRA_NF
+from ..utils.tracing import span
 from . import fused as FU
 from .device_intra import (_walk_tree, emit_intra_frame,
                            intra_split_decisions, scan_records,
@@ -224,7 +224,10 @@ def encode_intra_frame_fused(enc, w, org_y, org_u, org_v):
     enc/fused.finish_frame does for a P/B frame; Encoder._filters_done
     takes it. Records the host-clock seconds of "search" (up to the
     walk), "scan" (the final program with the filters, up to its fetch)
-    and "emit", and "tus", in enc.frame_times[-1]."""
+    and "emit", and "tus", in enc.frame_times[-1]. Spans: enc.search (of
+    it enc.search.program, .fetch and .walk: the split decisions and the
+    tree walk), enc.scan (of it enc.scan.inputs, .program and .fetch) and
+    enc.emit."""
     W, H = enc.width, enc.height
     p = enc.params
     dev = org_y.device
@@ -233,40 +236,43 @@ def encode_intra_frame_fused(enc, w, org_y, org_u, org_v):
     qpY = enc.frame_qp
     sig = IntraSig(H, W, p.encoder_speed > 1, int(enc.num_intra_modes), qpY,
                    int(CHROMA_QP[qpY]))
-    t0 = time.perf_counter()
-    _, small = DF.pack_fields(small_fields(enc.lambda_), pin=pin)
     org = (org_y, org_u, org_v)
     with G.lane(dev).lock:
-        e, (flat, layout) = run_search(dev, sig, org, small)
-        got = FU.host_maps(FU.fetch(flat), layout)
-        modes, split = intra_split_decisions(
-            {s: (got[(s, 0)], got[(s, 1)]) for s in SIZES}, W, H)
-        tus = _walk_tree(split, modes, W, H)
-        t1 = time.perf_counter()
-        times["search"] = t1 - t0
+        with span("enc.search", times, "search"):
+            _, small = DF.pack_fields(small_fields(enc.lambda_), pin=pin)
+            with span("enc.search.program"):
+                e, (flat, layout) = run_search(dev, sig, org, small)
+            with span("enc.search.fetch"):
+                got = FU.host_maps(FU.fetch(flat), layout)
+            with span("enc.search.walk"):
+                modes, split = intra_split_decisions(
+                    {s: (got[(s, 0)], got[(s, 1)]) for s in SIZES}, W, H)
+                tus = _walk_tree(split, modes, W, H)
 
-        inp = final_inputs(e, tus, enc.deblock_data, W, H,
-                           bool(p.deblocking))
-        layout, buf = DF.pack_fields(inp, pin=pin)
-        fsig = IntraFinalSig(bool(p.deblocking), bool(p.clpf), layout)
-        y, u, v, padded, flat, flayout = e.run_final(fsig, buf)
-        planes = tuple(t.clone() for t in (y, u, v))
-        padded = tuple(t.clone() for t in padded)
-        got = FU.host_maps(FU.fetch(flat), flayout)
+        with span("enc.scan", times, "scan"):
+            with span("enc.scan.inputs"):
+                inp = final_inputs(e, tus, enc.deblock_data, W, H,
+                                   bool(p.deblocking))
+                layout, buf = DF.pack_fields(inp, pin=pin)
+            fsig = IntraFinalSig(bool(p.deblocking), bool(p.clpf), layout)
+            with span("enc.scan.program"):
+                y, u, v, padded, flat, flayout = e.run_final(fsig, buf)
+                planes = tuple(t.clone() for t in (y, u, v))
+                padded = tuple(t.clone() for t in padded)
+            with span("enc.scan.fetch"):
+                got = FU.host_maps(FU.fetch(flat), flayout)
     n = len(tus)
     q16c = got[("q16c",)]
-    t2 = time.perf_counter()
-    times["scan"] = t2 - t1
     times["tus"] = n
     if enc.intra_record is not None:
         enc.intra_record.append(
             {"frame_num": enc.frame_num, "org": org,
              "fused": {"sig": sig, "small": small, "fsig": fsig,
                        "fbuf": buf}})
-    enc.deblock_data.reset()
-    emit_intra_frame(enc, w, tus, got[("q16y",)][:n, 0], q16c[:n, 0],
-                     q16c[:n, 1])
-    times["emit"] = time.perf_counter() - t2
+    with span("enc.emit", times, "emit"):
+        enc.deblock_data.reset()
+        emit_intra_frame(enc, w, tus, got[("q16y",)][:n, 0], q16c[:n, 0],
+                         q16c[:n, 1])
     return {"planes": planes, "padded": padded, "bit_sb": got[("bit_sb",)],
             # copied out of the pinned fetch buffer: a sequence's
             # reconstructions outlive it

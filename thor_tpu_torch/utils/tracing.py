@@ -1,12 +1,17 @@
 """Tracing and profiling hooks.
 
-Counterpart of thor_tpu/utils/tracing.py. StageTimer keeps the host's
-wall clock per named stage (parse, input build, device step, output) with
-thor_tpu's report; each stage is also a torch.profiler range, and on a
-timer made for a CUDA device an NVTX range, so a trace and an Nsight
-timeline name the stages. device_trace is torch.profiler with CPU (and,
-on a card, CUDA) activities, written as a Chrome trace. host_waits counts
-the calls that make the host wait for the card
+Counterpart of thor_tpu/utils/tracing.py. span() is the one span
+primitive: it keeps a stage's host-clock seconds in a dict and, while a
+torch.profiler records, opens a range of the stage's name, a host event
+on the clock of the device's kernels and copies (the encoder's stages,
+enc.*, are spans). StageTimer keeps the host's wall clock per named stage
+(parse, input build, device step, output) with thor_tpu's report; each
+stage is a span, and on a timer made for a CUDA device also an NVTX
+range, so a trace and an Nsight timeline name the stages. device_trace
+is torch.profiler with CPU (and, on a card, CUDA) activities, written as
+a Chrome trace. count_wait() counts, per thread, the places where the
+encoder needs a device result on the host (waits() reads the count);
+host_waits counts the calls that make the host wait for the card
 (torch.cuda.set_sync_debug_mode), by the line that made them.
 """
 
@@ -14,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 import warnings
 from collections import Counter, defaultdict
@@ -21,6 +27,42 @@ from collections import Counter, defaultdict
 import torch
 
 from ..device import resolve_device
+
+
+@contextlib.contextmanager
+def span(name: str, times=None, key=None, args=None):
+    """A stage named `name` over the block: its host-clock seconds are
+    added to times[key] (where times is given), and while a
+    torch.profiler records on this thread the block is a range of that
+    name (record_function, with the string `args`). With no profiler on it
+    costs a flag test and two clock reads."""
+    rf = None
+    if torch.autograd._profiler_enabled():
+        rf = torch.profiler.record_function(name, args)
+        rf.__enter__()
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        if times is not None:
+            times[key] = times.get(key, 0.0) + dt
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+
+_WAITS = threading.local()
+
+
+def count_wait():
+    """Count one place where this thread's host needs a device result
+    (on the CPU too, so that a CPU run counts what a card's would)."""
+    _WAITS.n = getattr(_WAITS, "n", 0) + 1
+
+
+def waits() -> int:
+    """The waits count_wait() counted on this thread so far."""
+    return getattr(_WAITS, "n", 0)
 
 
 class StageTimer:
@@ -36,14 +78,12 @@ class StageTimer:
     @contextlib.contextmanager
     def stage(self, name: str):
         nvtx = self.device is not None and self.device.type == "cuda"
-        with torch.profiler.record_function(name):
+        with span(name, self.totals, name):
             if nvtx:
                 torch.cuda.nvtx.range_push(name)
-            t0 = time.perf_counter()
             try:
                 yield
             finally:
-                self.totals[name] += time.perf_counter() - t0
                 self.counts[name] += 1
                 if nvtx:
                     torch.cuda.nvtx.range_pop()
