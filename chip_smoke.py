@@ -137,16 +137,20 @@ Phases (any failure exits nonzero):
      Then the device encoder's fused P/B programs (enc/fused.py): the
      zero-run pass kernel (csrc/rdoq.cu) against its plain version at
      the trials' 1080p shapes (luma and U+V, every size; timed) and on
-     rows built to fire it; kernel 6 on records padded to a bucket with
-     the count on the card (also 0) against the unpadded launch; frames
+     rows built to fire it; the quarter-pel motion search kernel
+     (csrc/me_subpel.cu) against its plain version on the inputs a 1080p
+     P frame's me_frame gives it at each block size (timed); kernel 6 on
+     records padded to a bucket with the count on the card (also 0)
+     against the unpadded launch; frames
      0-2 of the 1080p LDB form fused (cold), eager, eager, fused, equal
      bytes, each path decoded back to its reconstruction, with host
      waits, stage times, captures, capture ms, launches and host launch
      calls a P frame, the graphs' footprint and each path's device-only
      replay fps; then one cold fused single pass over all 5 frames of
      the crop, with its captures and capture ms by P frame;
-  5. a {"kernels": [...]} JSON line (six kernels and rdoq; mc_frame and
-     encode_scan with their launches in the P/B encode; each with its launches over
+  5. a {"kernels": [...]} JSON line (six kernels, rdoq and me_subpel;
+     mc_frame, encode_scan and subpel_search with their launches in the
+     P/B encode; each with its launches over
      the mirror encodes, over the two collect_stats decodes, over the 4x1
      sharded RA16 decode, over the sharded 1080p RA-form encode, in one
      round of each replay, per synthetic frame, over the 4K encode and
@@ -976,11 +980,12 @@ def all_counters():
     from thor_tpu_torch.ops import intra as IT
     from thor_tpu_torch.ops import kernels as K
     from thor_tpu_torch.ops import mc as M
+    from thor_tpu_torch.ops import me_subpel as MS
     return ((M.mc_frame, IT.intra_scan, TI.me_level, TI.mot_comp,
-             TI.mot_comp_uv, EI.encode_scan, K.rdoq_light),
+             TI.mot_comp_uv, EI.encode_scan, K.rdoq_light, MS.subpel_search),
             (M.mc_frame_plain, IT.intra_scan_plain, TI.me_level_plain,
              TI.mot_comp_plain, TI.mot_comp_uv_plain, EI.encode_scan_plain,
-             K._rdoq_light))
+             K._rdoq_light, MS._subpel))
 
 
 def zero_counters():
@@ -1732,7 +1737,8 @@ def phase_encode_pb(dev, card, out_dir):
             + f" (host clock, each stage ends in a wait for the device); "
             f"mc_frame {launches['mc_frame']} / encode_scan "
             f"{launches['encode_scan']} / rdoq_light "
-            f"{launches['rdoq_light']} launches; plain calls "
+            f"{launches['rdoq_light']} / subpel_search "
+            f"{launches['subpel_search']} launches; plain calls "
             f"{sum(plain.values())}; graphs captured "
             f"{ft.get('captures', 0)}; max_memory_allocated={peak} B; "
             f"PSNR-Y {psnr:.3f} dB")
@@ -1744,11 +1750,13 @@ def phase_encode_pb(dev, card, out_dir):
         if i and (launches["mc_frame"] != 2 * runs or not ft["pus"]
                   or bool(launches["encode_scan"]) != bool(ft["intra_leaves"])
                   or launches["encode_scan"] not in (0, 2 * runs)
-                  or not launches["rdoq_light"]):
+                  or not launches["rdoq_light"]
+                  or not launches["subpel_search"]):
             raise AssertionError(f"P frame {i} did not reconstruct through "
                                  "mc_frame and (on intra leaves) "
                                  "encode_scan, or quantized without "
-                                 "rdoq_light")
+                                 "rdoq_light, or searched without "
+                                 "subpel_search")
     med = sorted(fps)[len(fps) // 2]
     log(f"[slice] 1080p P-frame encode fps={med:.4f} (median of frames "
         f"1-3: {', '.join(f'{x:.4f}' for x in fps)}; spread "
@@ -1871,6 +1879,75 @@ def phase_rdoq(dev, frames):
     return rows, max_err
 
 
+def phase_me_subpel(dev, frames):
+    """csrc/me_subpel.cu against its plain version (ops/me_subpel._subpel)
+    on the card, on the inputs the quarter-pel step gets in a 1080p P
+    frame: frame 1 against frames 0 and 2 (edge-padded as references),
+    captured at each block size from me_frame on the card; timed there.
+    Returns (rows, max_err) like phase_kernels: a row per block size (one
+    launch for both references)."""
+    from thor_tpu_torch.codec.constants import SQUARED_LAMBDA_QP
+    from thor_tpu_torch.enc import device_me as DM
+    from thor_tpu_torch.ops import kernels as K
+    from thor_tpu_torch.ops import me_subpel as MS
+    rows, max_err = {"me_subpel": []}, {"me_subpel": 0}
+    org = torch.from_numpy(frames[1][0]).to(dev)
+    refpad = torch.stack([K.edge_pad(torch.from_numpy(frames[i][0]).to(dev),
+                                     MS.PAD) for i in (0, 2)])
+    # lam_me of the benchmark cell's P frames (QP 38, lambda_coeffP 1.2)
+    lam = torch.tensor(np.float32(np.sqrt(1.2 * SQUARED_LAMBDA_QP[38])),
+                       device=dev)
+    seen = []
+
+    def keep(*a):
+        seen.append(a)
+        return MS.subpel_search(*a)
+
+    DM.subpel_search = keep
+    try:
+        DM.me_frame(org, refpad, lam, 1)
+    finally:
+        DM.subpel_search = MS.subpel_search
+    torch.cuda.synchronize()
+    for ob, ref, lut, mvy, mvx, b, lam_me, py, px in seen:
+        n0 = MS.subpel_search.launches
+        got = MS.subpel_search(ob, ref, lut, mvy, mvx, b, lam_me, py, px)
+        torch.cuda.synchronize()
+        if MS.subpel_search.launches != n0 + 1:
+            raise AssertionError("me_subpel: not one launch a call")
+        t0 = time.perf_counter()
+        want = [MS._subpel(ob, ref[r], lut, mvy[r], mvx[r], b, lam_me, py,
+                           px) for r in range(ref.shape[0])]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(int((g[r].long() - w[j].long()).abs().max().item())
+                  for r, w in enumerate(want) for j, g in enumerate(got))
+        max_err["me_subpel"] = max(max_err["me_subpel"], err)
+        if err:
+            raise AssertionError(f"me_subpel[{b}x{b}]: kernel differs from "
+                                 f"its plain version (max |err| {err})")
+        R, (HB, WB) = ref.shape[0], mvy.shape[1:]
+        # each reference's window union (at most its plane) and the
+        # blocks' samples read once; MVs, predictors, lam_me, outputs
+        win = min(HB * WB * (b + 6) ** 2, ref.shape[1] * ref.shape[2])
+        nbytes = R * win + 4 * (HB * WB * b * b + 2 * R * HB * WB
+                                + 2 * HB * WB + 1 + 3 * R * HB * WB)
+        # 16 x 36 multiply-adds a window position, (b+1)^2 positions a
+        # block; then |o - s| and its sum for 49 candidates a pixel
+        ops = R * HB * WB * (2 * 576 * (b + 1) ** 2 + 3 * 49 * b * b)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        ms = time_ms(lambda: MS.subpel_search(ob, ref, lut, mvy, mvx, b,
+                                              lam_me, py, px),
+                     warmup=2, iters=10)
+        log(f"[kernel] me_subpel[1080p P frame {b}x{b}, {R} references, "
+            f"{HB}x{WB} blocks] equal to plain; kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.2f} bound_ms={b_ms:.5f} ({b_by})")
+        rows["me_subpel"].append((ms, plain_ms, b_ms, b_by, (nbytes, ops)))
+    if len(seen) != len(MS.SIZES):
+        raise AssertionError(f"me_frame made {len(seen)} quarter-pel calls")
+    return rows, max_err
+
+
 def phase_encode_fused(dev, card, out_dir):
     """The device encoder's P/B frames as CUDA graphs (enc/fused.py, the
     Encoder's default) against the stage-wise path (fused=False): first
@@ -1903,6 +1980,9 @@ def phase_encode_fused(dev, card, out_dir):
     t_phase = time.perf_counter()
     frames = frames_1080(3)
     rows, max_err = phase_rdoq(dev, frames)
+    r, e = phase_me_subpel(dev, frames)
+    rows.update(r)
+    max_err.update(e)
     for seed, (C, H, W, lo, hi) in enumerate(((1, 1024, 1920, 8, 64),
                                               (2, 512, 960, 4, 32))):
         planes, org, recs = random_enc_case(40 + seed, C, H, W, lo, hi, dev)
@@ -1956,7 +2036,7 @@ def phase_encode_fused(dev, card, out_dir):
         if turn == 0:
             launches_cold, plain = read_counters()
             if any(plain.values()) or not all(launches_cold[k] for k in (
-                    "mc_frame", "rdoq_light")):
+                    "mc_frame", "rdoq_light", "subpel_search")):
                 raise AssertionError(f"the fused 1080p encode: launches "
                                      f"{launches_cold}, plain calls {plain}")
         lc = DEF.live_counts(enc)
@@ -3022,8 +3102,9 @@ BENCH_MUST = {"decode": ("mc_frame", "intra_scan"),
               "decode_ra16": DEC_KERNELS,
               "decode_device": ("mc_frame", "intra_scan"),
               "synth": ("mc_frame",),
-              "encode": ("mc_frame", "intra_scan", "encode_scan"),
-              "encode_device": ("mc_frame", "encode_scan")}
+              "encode": ("mc_frame", "intra_scan", "encode_scan",
+                         "subpel_search"),
+              "encode_device": ("mc_frame", "encode_scan", "subpel_search")}
 
 
 def phase_bench(card):
@@ -3112,6 +3193,7 @@ def main():
                                                                Path(tmp))
         rows.update(rows_f)
         max_err["rdoq"] = max_err_f["rdoq"]
+        max_err["me_subpel"] = max_err_f["me_subpel"]
         max_err["encode_scan"] = max(max_err["encode_scan"],
                                      max_err_f["encode_scan"])
         launches_host = phase_encode_host(dev, card, Path(tmp))
@@ -3135,24 +3217,30 @@ def main():
         "rdoq": ("thor_tpu_torch/csrc/rdoq.cu",
                  "thor_tpu/ops/jax_kernels.py:1094 (_rdoq_light, XLA ops; "
                  "no pallas_call)"),
+        # port-only: thor_tpu runs the quarter-pel step as XLA ops
+        "me_subpel": ("thor_tpu_torch/csrc/me_subpel.cu",
+                      "thor_tpu/enc/device_me.py:160 (_subpel_step, XLA "
+                      "ops; no pallas_call)"),
     }
+    counter = {"rdoq": "rdoq_light", "me_subpel": "subpel_search"}
     kernels = []
     for name, (src, repl) in meta.items():
         r = rows[name]             # the launches one frame makes
         b_ms, b_by = bound_ms(sum(x[4][0] for x in r),
                               sum(x[4][1] for x in r))
-        c = "rdoq_light" if name == "rdoq" else name     # its counter
+        c = counter.get(name, name)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": (launches if name in ldb else launches_enc
                          if name == "encode_scan" else launches_fused
-                         if name == "rdoq" else launches_ra)[c],
+                         if name in counter else launches_ra)[c],
             "launches_ra16_path": launches_ra[c],
             "launches_python_parse_ldb": launches_py_ldb[c],
             "launches_python_parse_ra16": launches_py_ra[c],
             **({"launches_pb_encode": launches_pb[c],
                 "launches_fused_encode": launches_fused[c]}
-               if name in ("mc_frame", "encode_scan", "rdoq") else {}),
+               if name in ("mc_frame", "encode_scan", "rdoq", "me_subpel")
+               else {}),
             "launches_host_encode": launches_host[c],
             "launches_sharded_ra16": launches_sh_ra[c],
             "launches_sharded_encode": launches_sh_enc[c],
@@ -3186,7 +3274,9 @@ def main():
         f"/ plain_ms / bound_ms over one variant's luma and U+V launch at "
         f"each trial size of a 1080p P frame, launches over the cold fused "
         f"3-frame 1080p LDB-form encode (launches_fused_encode: mc_frame, "
-        f"encode_scan and rdoq there); "
+        f"encode_scan and rdoq there); me_subpel: ms / plain_ms / bound_ms "
+        f"over the four block sizes' launches (two references each) of a "
+        f"1080p P frame's motion search, launches as rdoq's; "
         f"launches_encode_4k: over the 2-frame 4K encode, its decode and "
         f"its replay rounds; launches_bench_<child>: over each child "
         f"process of python -m thor_tpu_torch.bench); {smi_line}")

@@ -273,7 +273,7 @@ def test_capture_counts_are_taken_back():
         return "out"
 
     out, added = G.counted_capture(run)
-    assert out == "out" and added == [2, 3, 0, 0, 4, 5, 6]
+    assert out == "out" and added == [2, 3, 0, 0, 4, 5, 6, 0]
     assert [f.launches for f in counted] == n0
 
 

@@ -32,7 +32,7 @@ subprocess of its own under bench.py's time limit and prints one JSON line:
     the encoder's reconstruction;
   - encode_device: utils/device_encode_fps on the same frames (the P
     frames' device work replayed; gated there).
-Every child counts the six kernels' launches and their plain versions'
+Every child counts the kernels' launches and their plain versions'
 calls over its run ("launches", "plain_calls"); the parent writes each
 child's line to stderr.
 
@@ -84,6 +84,7 @@ from .ops import interp as TI
 from .ops import intra as IT
 from .ops import kernels as K
 from .ops import mc as MC
+from .ops import me_subpel as MS
 from .utils import device_decode_fps, device_encode_fps
 from .utils.link_profile import measure_link
 from .utils.synth import build_synthetic_frame
@@ -107,7 +108,8 @@ KERNELS = ((MC.mc_frame, MC.mc_frame_plain),
            (TI.mot_comp, TI.mot_comp_plain),
            (TI.mot_comp_uv, TI.mot_comp_uv_plain),
            (EI.encode_scan, EI.encode_scan_plain),
-           (K.rdoq_light, K._rdoq_light))
+           (K.rdoq_light, K._rdoq_light),
+           (MS.subpel_search, MS._subpel))
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ once, per reference:
  2. L1 (half resolution) and L0 (full resolution): +-2 refinements.
  3. The reference of least full-pel cost plus (lam_me * r + 0.5).
  4. Per reference: a +-2 refinement with the MV rate taken against the
-    median of the left / up / up-right neighbours' MVs, then the exact
-    7 x 7 quarter-pel step.
+    median of the left / up / up-right neighbours' MVs; then, for every
+    reference at once, the exact 7 x 7 quarter-pel step
+    (ops/me_subpel.subpel_search).
 
 Every cost adds the MV rate (quote_vlc table 10) times lam_me, rounded as
 (lam_me * bits + 0.5) truncated: lam_me is a float32 and the product and
@@ -21,24 +22,27 @@ which is what torch.argmin returns.
 
 The TPU version gathers its windows with rolls and unrolls its candidate
 loops; here each candidate set is one batched tensor (ops/windowed for the
-windows) and its argmin.
+windows) and its argmin, but for the quarter-pel step: on a CUDA tensor
+it is the hand-written kernel csrc/me_subpel.cu, one launch a block size
+for every reference, which scores each block's 49 candidates from its
+window in shared memory; on a CPU tensor its plain version
+(ops/me_subpel._subpel), reference by reference. Both give the same
+integers.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..ops.kernels import build_luma_mc_lut, const
+from ..ops.kernels import build_luma_mc_lut
+from ..ops.me_subpel import PAD, _first_min, _mv_bits, _rate, subpel_search
 from ..ops.windowed import banded_windows
 
-PAD = 96            # luma reference padding (PADDING_Y)
 L2_RANGE = 8        # +-8 quarter-resolution pixels = +-32 full-pel
 # window-offset bounds per stage (L2 +-8 doubles per level, +-2 a pass)
 M_L1 = 2 * L2_RANGE + 2                  # 18
 M_L0 = 2 * (2 * L2_RANGE + 2) + 2        # 38
-M_SEL = M_L0 + 2                         # 40
-M_SUB = M_SEL                            # 40
+M_SEL = M_L0 + 2                         # 40 (me_subpel.M_SUB)
 BIG = 1 << 30
 
 I32 = torch.int32
@@ -51,33 +55,9 @@ def _down2(p):
     return (q.sum(dim=(-3, -1), dtype=I32) + 2) >> 2
 
 
-def _mv_comp_bits(d):
-    """quote_vlc(10, 2|d| - (d < 0)) code length (enc/putvlc.c:205):
-    1 + 2 * floor(log2(cn + 1))."""
-    cn = 2 * d.abs() - (d < 0).to(I32)
-    e = torch.frexp((cn + 1).to(torch.float32)).exponent.to(I32)
-    return 1 + 2 * (e - 1)
-
-
-def _mv_bits(dx, dy):
-    return _mv_comp_bits(dx) + _mv_comp_bits(dy)
-
-
-def _rate(lam_me, bits):
-    """(lam_me * bits + 0.5) in float32, truncated to int32."""
-    return (lam_me * bits.to(torch.float32) + 0.5).to(I32)
-
-
 def _blocks4(plane, b, HB, WB):
     """[HB*b, WB*b] -> [HB, WB, b, b]."""
     return plane[:HB * b, :WB * b].reshape(HB, b, WB, b).permute(0, 2, 1, 3)
-
-
-def _first_min(cost):
-    """(min, index) over dim 0 of [C, ...]; a tie keeps the first
-    (torch.argmin's rule)."""
-    i = torch.argmin(cost, dim=0)
-    return cost.gather(0, i[None])[0], i.to(I32)
 
 
 def _offset_sads(win, ob, b, rr):
@@ -117,37 +97,6 @@ def _pred_field(g):
     up = torch.cat([z[:1], g[:-1]], 0)
     upright = torch.cat([z[:1], torch.cat([g[:-1, 1:], z[:-1, :1]], 1)], 0)
     return _med3(left, up, upright)
-
-
-def _subpel(ob, refp, lut, mvy, mvx, b, lam_me, py, px):
-    """Exact 7 x 7 quarter-pel step around full-pel (mvy, mvx) with the
-    rate against the quarter-pel predictor (py, px). The 16 phase planes
-    of each block's window are interpolated in the window (int32 tap sums,
-    floor((acc + 2048) / 4096), clip). Returns quarter-pel (mvy, mvx,
-    cost)."""
-    gf = banded_windows(refp, mvy, mvx, PAD - 3, PAD - 3, b, b + 7,
-                        M_SUB).to(I32)
-    view = gf.unfold(2, b + 2, 1).unfold(3, b + 2, 1)  # [HB,WB,6,6,b+2,b+2]
-    lut_t = const(np.asarray(lut, np.int32), ob.device)
-    # sads[p, oy, ox]: phase p's prediction at window offset (oy, ox)
-    sads = []
-    for p in range(16):
-        acc = (lut_t[p][:, :, None, None] * view).sum(dim=(2, 3), dtype=I32)
-        pw = torch.clamp((acc + 2048) >> 12, 0, 255)
-        pv = pw[:, :, :b + 1, :b + 1].unfold(2, b, 1).unfold(3, b, 1)
-        sads.append((ob[:, :, None, None] - pv).abs().sum(dim=(4, 5),
-                                                         dtype=I32))
-    sads = torch.stack(sads)                           # [16, HB, WB, 2, 2]
-    q = [(qy, qx) for qy in range(-3, 4) for qx in range(-3, 4)]
-    sel = torch.stack([sads[(qy & 3) * 4 + (qx & 3), :, :, 1 + (qy >> 2),
-                            1 + (qx >> 2)] for qy, qx in q])
-    qy = const(np.array([a for a, _ in q], np.int32), ob.device)
-    qx = const(np.array([c for _, c in q], np.int32), ob.device)
-    cy = 4 * mvy + qy[:, None, None]
-    cx = 4 * mvx + qx[:, None, None]
-    best, i = _first_min(sel + _rate(lam_me, _mv_bits(cx - px, cy - py)))
-    i = i[None].long()
-    return cy.gather(0, i)[0], cx.gather(0, i)[0], best
 
 
 def _l2_search(o2c, r2, lam_me, grids):
@@ -245,17 +194,14 @@ def me_frame(org, refpad, lam_me, seq_bipred: int = 0):
 
         py = 4 * _pred_field(mfy)
         px = 4 * _pred_field(mfx)
-        per_ref = []
-        for r, (m0y, m0x, _) in enumerate(ref_mv):
-            m0y, m0x, _ = _refine(
-                ob0, r0[r], PAD, m0y, m0x, s, 2, lam_me, M_SEL,
-                lambda cx, cy: _mv_bits(4 * cx - px, 4 * cy - py))
-            per_ref.append(_subpel(ob0, r0[r], lut, m0y, m0x, s, lam_me, py,
-                                   px))
-        qy, qx, qc = (torch.stack([v[j] for v in per_ref]).gather(
-            0, slot[None].long())[0] for j in range(3))
+        sel = [_refine(ob0, r0[r], PAD, m0y, m0x, s, 2, lam_me, M_SEL,
+                       lambda cx, cy: _mv_bits(4 * cx - px, 4 * cy - py))
+               for r, (m0y, m0x, _) in enumerate(ref_mv)]
+        ry, rx, rc = subpel_search(
+            ob0, refpad, lut, torch.stack([m for m, _, _ in sel]),
+            torch.stack([m for _, m, _ in sel]), s, lam_me, py, px)
+        qy, qx, qc = (v.gather(0, slot[None].long())[0]
+                      for v in (ry, rx, rc))
         out[s] = (qy.reshape(-1), qx.reshape(-1), slot.reshape(-1),
-                  qc.reshape(-1),
-                  torch.stack([v[0].reshape(-1) for v in per_ref]),
-                  torch.stack([v[1].reshape(-1) for v in per_ref]))
+                  qc.reshape(-1), ry.reshape(R, -1), rx.reshape(R, -1))
     return out

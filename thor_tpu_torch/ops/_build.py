@@ -26,7 +26,7 @@ BUILD_DIR = PKG / "_build"
 CSRC = PKG / "csrc"
 
 CUDA_SOURCES = ("mc", "intra_scan", "interp_me", "interp_mc",
-                "enc_intra_scan", "rdoq")
+                "enc_intra_scan", "rdoq", "me_subpel")
 AID_SOURCES = ("occupy",)       # test aids, built in the same round
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

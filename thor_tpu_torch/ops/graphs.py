@@ -30,7 +30,8 @@ wraps). On the CPU there is no graph: a program just runs, under the
 same lanes and locks. A capture that fails raises.
 
 The kernels of COUNTED (kernels 1 and 2 of the decoder, the three
-interpolation kernels, and the encoder's kernel 6 and zero-run pass)
+interpolation kernels, and the encoder's kernel 6, zero-run pass and
+quarter-pel motion search)
 count their launches where their wrappers launch them. Under a capture
 they launch nothing, so a program keeps the counts its capture added,
 takes them back, and adds them at every replay (the warm-up before a
@@ -55,10 +56,11 @@ from .interp import me_level, mot_comp, mot_comp_uv
 from .intra import intra_scan
 from .kernels import rdoq_light
 from .mc import mc_frame
+from .me_subpel import subpel_search
 
 MAXSIZE = 256       # _jit_fused's lru_cache bound
 COUNTED = (mc_frame, intra_scan, encode_scan, rdoq_light, me_level, mot_comp,
-           mot_comp_uv)
+           mot_comp_uv, subpel_search)
 
 STATS = {"captures": 0, "capture_ms": 0.0, "replays": 0, "evictions": 0}
 _CAPTURE = threading.Lock()     # one warm-up and capture at a time

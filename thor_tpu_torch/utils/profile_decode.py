@@ -74,6 +74,8 @@ def _group(name: str) -> str:
         return "me_level (csrc/interp_me.cu)"
     if "mc_kernel" in name:
         return "mc_frame (csrc/mc.cu)"
+    if "me_subpel_kernel" in name:
+        return "subpel_search (csrc/me_subpel.cu)"
     if "enc_intra_scan_kernel" in name:
         return "encode_scan (csrc/enc_intra_scan.cu)"
     if "intra_scan_" in name:      # the scan and its unit-table kernel
